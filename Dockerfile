@@ -1,10 +1,10 @@
 # spintorque-tpu container image.
 #
-# TPU-first counterpart of the reference's Dockerfile (multi-stage build,
-# non-root runtime, healthcheck). The runtime stage targets Cloud TPU VMs:
-# jax[tpu] pulls libtpu from the Google releases index; on a non-TPU host
-# the same image falls back to the CPU backend automatically (JAX picks the
-# best available platform), so one image serves dev, CI, and pod slices.
+# GPU-first counterpart of the reference's Dockerfile (multi-stage build,
+# non-root runtime, healthcheck). The runtime stage targets NVIDIA GPU hosts:
+# jax[cuda12] bundles the CUDA runtime; on a host without a GPU the same
+# image falls back to the CPU backend automatically (JAX picks the best
+# available platform), so one image serves dev, CI, and GPU hosts.
 
 # ---------------------------------------------------------------------------
 # builder: wheel build + unit-test gate
@@ -26,17 +26,17 @@ RUN python -m build --wheel --outdir /build/dist
 # the fast unit tier must pass before an image is produced
 COPY tests ./tests
 COPY Makefile bench.py __graft_entry__.py ./
-RUN pip install dist/*.whl "jax[cpu]" pytest gymnasium flax optax orbax-checkpoint chex einops \
+RUN pip install dist/*.whl "jax[cpu]" pytest gymnasium optax orbax-checkpoint chex einops \
  && env JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python -m pytest tests/unit -x -q
 
 # ---------------------------------------------------------------------------
-# runtime: minimal non-root image for TPU VMs (and CPU fallback)
+# runtime: minimal non-root image for GPU hosts (and CPU fallback)
 # ---------------------------------------------------------------------------
 FROM python:3.12-slim AS runtime
 
 LABEL org.opencontainers.image.title="spintorque-tpu" \
-      org.opencontainers.image.description="TPU-native spin-torque device RL environment engine"
+      org.opencontainers.image.description="Spin-torque device RL environment engine on the GPU"
 
 ENV PYTHONUNBUFFERED=1 \
     PYTHONDONTWRITEBYTECODE=1 \
@@ -45,10 +45,9 @@ ENV PYTHONUNBUFFERED=1 \
 RUN groupadd -r spintorque && useradd -r -g spintorque -m spintorque
 
 COPY --from=builder /build/dist/*.whl /tmp/
-# TPU wheel index is a no-op off-TPU; JAX falls back to CPU at runtime.
-RUN pip install /tmp/*.whl gymnasium flax optax orbax-checkpoint chex einops \
- && pip install "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
-    || pip install "jax[cpu]" \
+# The CUDA wheel runs on the CPU backend where no GPU is visible.
+RUN pip install /tmp/*.whl gymnasium optax orbax-checkpoint chex einops \
+ && pip install "jax[cuda12]" \
  && rm -rf /tmp/*.whl
 
 WORKDIR /app

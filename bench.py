@@ -1,59 +1,60 @@
 """Headline benchmark: env-steps/s/chip on vectorized SpinTorque-v0.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
 
 Configuration follows BASELINE.json's north-star metric: 4096 vectorized
 SpinTorque-v0 envs (default physics: STT-MRAM, thermal fluctuations on,
 RK4, max_duration 5 ns), random continuous actions spanning the full action
-space, measured in steady state on the local accelerator. The env batch is
-sharded over all local chips (no-op on one chip) so the per-chip number
-stays honest on multi-chip hosts. The measured program is a scan of 16 env
-steps per dispatch - the production PPO rollout length (rounds 2-3 scanned
-8; the delta is host-dispatch amortization only, quantified with a device
-trace in docs/DISPATCH_OVERHEAD_TPU_v5e.json).
+space, measured in steady state on the local GPU. The env batch is sharded
+over all local cards (no-op on one card) so the per-chip number stays honest
+on multi-card hosts. The measured program is a scan of 16 env steps per
+dispatch - the production PPO rollout length.
 
-measure_env_throughput() is the ONE measurement program: the artifact
-recorder (scripts/record_tpu_bench.py) imports it so docs/BENCH_TPU_v5e.json
-and the headline are the same program, not lookalikes.
+measure_env_throughput() is the ONE measurement program: the ladder
+recorder (scripts/record_tpu_bench.py) imports it, so the ladder and the
+headline are the same program, not lookalikes.
+
+Refuses to run (exit 2) without a GPU: a CPU number is not a chip number.
 
 Baseline: the reference's measured 1.802 s/step single env on CPU
 (quality_gates_report.json "Performance") = 0.555 env-steps/s.
 """
 
 import json
+import subprocess
+import sys
 
 import jax
 
-# NOTE: deliberately NO jax_compilation_cache_dir here. Enabling the
-# persistent compilation cache makes the compiled step program ~3.4x slower
-# on this TPU generation (21.7 ms vs 6.3 ms per 4096-env step, measured with
-# a fresh empty cache dir - it is the config, not stale artifacts; the
-# serializable-executable path pessimizes the Pallas kernel). Compile time
-# (~30 s once) is an acceptable price for a 3.4x faster measured program.
-
-from spintorque_tpu.utils.benchmark import measure_env_throughput  # noqa: E402,F401
+from spintorque_tpu.utils.benchmark import measure_env_throughput  # noqa: F401
 
 REFERENCE_STEPS_PER_S = 1.0 / 1.802  # reference quality-gate measurement
 
 
-def main():
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench.py: no GPU (JAX platform {dev.platform!r})", file=sys.stderr)
+        return 2
+
+    from spintorque_tpu.compile_cache import enable_compile_cache
     from spintorque_tpu.envs import SpinTorqueEnv, SpinTorqueEnvConfig
-    from spintorque_tpu.ops.pallas_integrator import tpu_kernel_available
 
+    enable_compile_cache()
     B = 4096
-    # Pin the fast path explicitly (instead of trusting auto-detection) so
-    # the headline number provably includes the Pallas kernel whenever the
-    # hardware can run it; record the resolved flag in the JSON line.
-    use_pallas = tpu_kernel_available()
-    cfg = SpinTorqueEnvConfig(dtype="float32", use_pallas=use_pallas or None)
+    cfg = SpinTorqueEnvConfig(dtype="float32")
 
-    # Median over 3 FRESH-COMPILE executables: Mosaic schedules vary
-    # 0.1-0.5 ms across compiles of the same program (the kernel sweeps'
-    # long-established discipline, docs/BENCH_DUAL*_TPU_v5e.json), and the
-    # thermal headline's run-to-run spread is schedule-dominated - a
-    # single-compile headline conflates the program with one schedule draw
-    # (round-4 verdict #2). Per-compile medians ride along in the JSON.
+    # Median over 3 executables (caches cleared between them), with the
+    # per-executable medians in the JSON line.
     per_compile = []
     resolved_pallas = None
     for _ in range(3):
@@ -65,13 +66,10 @@ def main():
         per_compile.append(rates[len(rates) // 2])
     per_compile.sort()
     # Denominator matches the mesh measure_env_throughput builds (ALL
-    # devices, jax.devices()) - local_device_count() would overstate
-    # per-chip throughput by the process count under a multi-process
-    # runtime where the two differ.
+    # devices, jax.devices()).
     n_chips = jax.device_count()
     steps_per_s_per_chip = per_compile[1] / n_chips
 
-    dev = jax.devices()[0]
     print(
         json.dumps(
             {
@@ -81,14 +79,17 @@ def main():
                 "vs_baseline": round(steps_per_s_per_chip / REFERENCE_STEPS_PER_S, 1),
                 "use_pallas": resolved_pallas,
                 "backend": jax.default_backend(),
-                "device_kind": getattr(dev, "device_kind", dev.platform),
+                "device_kind": dev.device_kind,
+                "device_count": n_chips,
+                "card": card_name(),
                 "per_compile_medians": [
                     round(r / n_chips, 1) for r in per_compile
                 ],
             }
         )
     )
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

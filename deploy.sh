@@ -1,14 +1,14 @@
 #!/usr/bin/env bash
-# Deployment driver (counterpart of the reference's deploy.sh), TPU-flavored:
+# Deployment driver (counterpart of the reference's deploy.sh):
 # builds the container, runs the CPU test gate, and either starts the local
-# compose stack or emits the per-host launch commands for a multi-host TPU
-# pod slice (generated by spintorque_tpu.deployment.DeploymentSpec).
+# compose stack or emits the per-host launch commands for a multi-host GPU
+# run (generated by spintorque_tpu.deployment.DeploymentSpec).
 #
 # Usage:
 #   ./deploy.sh build                 # docker image (builder stage = test gate)
 #   ./deploy.sh test                  # full CPU suite in the dev image
 #   ./deploy.sh up                    # local compose train stack
-#   ./deploy.sh pod <hosts> <coord>   # print pod-slice launch commands
+#   ./deploy.sh pod <hosts> <coord>   # print multi-host launch commands
 set -euo pipefail
 
 IMAGE=${IMAGE:-spintorque-tpu}

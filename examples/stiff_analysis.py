@@ -2,14 +2,14 @@
 
 The reference exposes scipy's stiff methods (Radau/BDF/LSODA) through its
 adaptive LLGS solver for analysis work (spin_torque_gym/physics/
-llgs_solver.py:26,35); here the same names run the batched TPU-native
+llgs_solver.py:26,35); here the same names run the batched accelerator-native
 3-stage Radau IIA (physics/adaptive.py). This example shows where the
 implicit path earns its keep: a high-damping relaxation whose fast
 precession caps the explicit solver's step size forever, while Radau's
 dt grows to dt_max once the transient decays — a whole batch of initial
 conditions integrating in lockstep, each with its own (t, dt).
 
-Run: python examples/stiff_analysis.py   (CPU or TPU; ~30 s)
+Run: python examples/stiff_analysis.py   (CPU or GPU; ~30 s)
 """
 
 import os as _os

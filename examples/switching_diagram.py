@@ -1,7 +1,7 @@
 """Switching-probability phase diagram over a (current, duration) grid.
 
 The whole grid x thermal ensemble runs as ONE batch through the pulse
-integrator (the Pallas hot path on TPU) and shards over all local chips.
+integrator (the GPU kernel on a GPU) and shards over all local cards.
 Prints an ASCII diagram and writes results/switching_diagram.json.
 
 Run: python examples/switching_diagram.py

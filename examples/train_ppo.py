@@ -1,4 +1,4 @@
-"""Train a PPO policy natively on TPU and record the learning curve.
+"""Train a PPO policy natively on the accelerator and record the learning curve.
 
 The device config uses the deterministic easy-switching regime
 (polarization=1e-12, damping=0.1: the simplified-STT term is comparable to

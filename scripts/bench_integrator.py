@@ -1,4 +1,4 @@
-"""Integrator micro-benchmark: XLA vs Pallas paths (run on TPU)."""
+"""Integrator micro-benchmark: XLA vs the GPU kernel (run on the GPU)."""
 import sys, os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import time, jax, jax.numpy as jnp, numpy as np

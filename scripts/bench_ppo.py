@@ -8,16 +8,15 @@ Measures, in steady state on the local accelerator:
   * env-steps only (random actions, no policy net) -> the policy's
     in-situ marginal
   * isolated rollout-only and update-only executables, kept as REFERENCE
-    diagnostics only: round 4 recorded their sum EXCEEDING the full step
-    ("unaccounted_ms": -8.6) because separately-jitted phases are
-    different executables with different schedules and extra output
-    materialization - they are not an additive decomposition. The in-situ
-    ablation marginals are additive BY CONSTRUCTION:
+    diagnostics only: separately-jitted phases are different executables
+    with different schedules and extra output materialization, so their
+    sum can exceed the full step - they are not an additive decomposition.
+    The in-situ ablation marginals are additive BY CONSTRUCTION:
     env_only + policy_marginal + update_marginal == train_step.
 
-Prints one JSON object with ms per phase and derived env-steps/s so the
-rollout/training gap is attributable (VERDICT round 2 item 1; accounting
-model fixed per VERDICT round 4 item 4).
+Prints one JSON object with ms per phase, derived env-steps/s and the card's
+name, so the rollout/training gap is attributable. Refuses to run without a
+GPU.
 
 Run: python scripts/bench_ppo.py [--batch 4096] [--rollout 16]
                                  [--compute-dtype bfloat16]
@@ -60,11 +59,15 @@ def main():
                     help="network matmul dtype (PPOConfig.compute_dtype)")
     ap.add_argument("--shared-trunk", action="store_true",
                     help="one trunk for both heads (PPOConfig.shared_trunk)")
-    ap.add_argument("--out", default=None,
-                    help="artifact path; default writes the canonical "
-                         "docs/BENCH_PPO_TPU_v5e.json ONLY for the "
-                         "canonical config on a TPU backend")
+    ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU (JAX platform {jax.devices()[0].platform!r})")
+
+    from bench import card_name
+    from spintorque_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from spintorque_tpu.envs import SpinTorqueEnv, SpinTorqueEnvConfig
     from spintorque_tpu.rl.ppo import PPOConfig, PPOTrainer
@@ -89,6 +92,8 @@ def main():
         "shared_trunk": args.shared_trunk,
         "use_pallas": bool(env.config.use_pallas),
         "backend": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
+        "card": card_name(),
     }
 
     # --- full train step -------------------------------------------------
@@ -125,8 +130,7 @@ def main():
         # bound methods compare/hash equal by (instance, function), so that
         # spelling silently REUSES the production wrapper's cached
         # executable and the trace-time patch never takes effect (measured:
-        # identical runtimes and a 0.4 s "compile"; this was round-4's
-        # negative-unaccounted mystery's sibling).
+        # identical runtimes and a 0.4 s "compile").
         def ablated_impl(ts):
             return trainer._train_step_impl(ts)
 
@@ -210,8 +214,7 @@ def main():
 
     # Additive in-situ decomposition (sums to train_step_ms by
     # construction; the isolated rollout/update numbers above are separate
-    # executables and must NOT be summed - that was round 4's negative
-    # "unaccounted_ms"):
+    # executables and must NOT be summed):
     results["phases_in_situ_ms"] = {
         "env_steps": results["env_only_ms"],
         "policy_marginal": round((t_noupd - t_env) * 1e3, 3),
@@ -224,36 +227,13 @@ def main():
     results["train_vs_rollout_only_pct"] = round(
         100.0 * t_roll / t_full, 2)
     # 'recorded' set BEFORE printing so stdout JSON and the persisted
-    # artifact are byte-identical objects (review finding).
+    # file are byte-identical objects.
     results["recorded"] = time.strftime("%Y-%m-%d")
     print(json.dumps(results))
-    # Persist the artifact: round 3's file was written by hand and round 4
-    # initially re-measured WITHOUT updating it - print-only scripts make
-    # stale artifacts (advisor-class bug). The CANONICAL file is only
-    # overwritten by the canonical configuration on a real TPU backend;
-    # exploratory runs (other batch sizes, CPU machines) must pass --out
-    # or get no artifact (review finding: a --batch 256 dev run silently
-    # replaced the published v5e numbers).
-    canonical = (
-        (args.batch, args.rollout, args.epochs, args.minibatches)
-        == (4096, 16, 4, 4)
-        and args.compute_dtype == PPOConfig().compute_dtype
-        and args.shared_trunk == PPOConfig().shared_trunk
-        and jax.default_backend() == "tpu"
-    )
-    out = args.out
-    if out is None and canonical:
-        out = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            "docs", "BENCH_PPO_TPU_v5e.json",
-        )
-    if out:
-        with open(out, "w") as fh:
+    if args.out:
+        with open(args.out, "w") as fh:
             json.dump(results, fh, indent=2)
-        print("wrote", out)
-    else:
-        print("# non-canonical config/backend: artifact NOT written "
-              "(pass --out to save)")
+        print("wrote", args.out)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ accelerator and assert health invariants the whole way.
 Checks, per block and cumulatively: observations finite, magnetization
 norms ~1, zero failed solves (simulation_success), reward within the
 SafetyWrapper clamp, episodes actually turning over (success+truncation).
-Writes docs/SOAK_TPU_v5e.json.
+Prints one JSON object naming the card (and writes it to --out if given).
+Refuses to run without a GPU.
 
-Run: timeout 590 python scripts/soak_test.py --seconds 60
+Run: timeout 590 python scripts/soak_test.py --seconds 60 [--out soak.json]
 """
 
 import argparse
@@ -31,7 +32,14 @@ N_INNER = 16
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=60.0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU (JAX platform {jax.devices()[0].platform!r})")
+    from bench import card_name
+    from spintorque_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     env = SpinTorqueEnv(batch_size=B, config=SpinTorqueEnvConfig(dtype="float32"))
     policy = random_policy(env)
@@ -103,6 +111,8 @@ def main():
         return 1
     art = {
         "backend": jax.default_backend(),
+        "device_kind": jax.devices()[0].device_kind,
+        "card": card_name(),
         "batch": B,
         "recorded": time.strftime("%Y-%m-%d"),
         "wall_s": round(wall, 1),
@@ -123,11 +133,10 @@ def main():
         "healthy": bad_blocks == 0 and float(np.mean(failed_fracs)) < 0.05,
     }
     print(json.dumps(art), flush=True)
-    out = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "docs", "SOAK_TPU_v5e.json")
-    with open(out, "w") as fh:
-        json.dump(art, fh, indent=2)
-    print("wrote", out)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(art, fh, indent=2)
+        print("wrote", args.out)
     return 0 if art["healthy"] else 1
 
 

@@ -1,10 +1,10 @@
-"""spintorque_tpu: TPU-native spintronic-device RL environment engine.
+"""spintorque_tpu: accelerator-native spintronic-device RL environment engine.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 danieleschmidt/spin-torque-rl-gym: batched Landau-Lifshitz-Gilbert-Slonczewski
 physics, STT/SOT/VCMA/skyrmion device models, vectorized Gymnasium-compatible
 RL environments, composite rewards, and pod-scale sharded rollout - with the
-entire env.step hot path compiled into a single fused TPU program.
+entire env.step hot path compiled into a single fused device program.
 
 Importing the package registers the Gymnasium environment ids
 (SpinTorque-v0, SpinTorqueArray-v0, SkyrmionRacetrack-v0), mirroring the

@@ -1,7 +1,7 @@
 """Command-line interface: info / train / eval / benchmark / config.
 
-TPU counterpart of the reference CLI (spin_torque_gym/cli.py:43-418). The
-``train`` subcommand runs the native TPU PPO trainer by default (the
+Counterpart of the reference CLI (spin_torque_gym/cli.py:43-418). The
+``train`` subcommand runs the native on-device PPO trainer by default (the
 reference shells out to stable-baselines3 on host CPU); ``--backend sb3``
 keeps the reference's behavior through the Gymnasium adapter when
 stable-baselines3 is installed.
@@ -299,7 +299,7 @@ def cmd_sweep(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spintorque-tpu",
-        description="TPU-native spintronic RL environment engine",
+        description="Accelerator-native spintronic RL environment engine",
     )
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -372,6 +372,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.func(args)
 
 

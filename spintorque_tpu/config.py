@@ -1,10 +1,10 @@
 """Hierarchical configuration system.
 
-TPU counterpart of the reference config module (spin_torque_gym/config.py):
+Counterpart of the reference config module (spin_torque_gym/config.py):
 a dataclass tree with precedence defaults < file (YAML/JSON) < SPIN_TORQUE_*
 environment variables (config.py:124-212), plus validation and module-global
 accessors (:347-417). The ``ComputeConfig.use_jax`` flag of the reference is
-retired - everything here is JAX - replaced by real TPU knobs (mesh shape,
+retired - everything here is JAX - replaced by real accelerator knobs (mesh shape,
 dtype, substep budget).
 """
 

@@ -2,7 +2,7 @@
 
 Counterpart of the reference deployment tier
 (spin_torque_gym/deployment/global_deployment.py - whose sibling modules
-are import-broken, deployment/__init__.py:7-10). Rebuilt as practical TPU
+are import-broken, deployment/__init__.py:7-10). Rebuilt as practical accelerator
 deployment helpers: pod-slice launch manifests, serving health endpoints,
 and compliance/audit record keeping.
 """

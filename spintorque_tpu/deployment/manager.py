@@ -1,8 +1,8 @@
 """Deployment manifests, serving health, and audit logging.
 
 Counterpart of spin_torque_gym/deployment/global_deployment.py
-(ComplianceFramework :64, GlobalDeploymentManager :246), reshaped for TPU
-reality: a deployment is a set of host processes over a pod slice, each
+(ComplianceFramework :64, GlobalDeploymentManager :246), reshaped for
+accelerator hosts: a deployment is a set of host processes over GPU hosts, each
 running the same SPMD program; this module generates launch specs,
 validates environment readiness, exposes a serving health snapshot, and
 keeps structured audit records.
@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional
 
 @dataclass
 class DeploymentSpec:
-    """A multi-host TPU deployment description."""
+    """A multi-host accelerator deployment description."""
 
     name: str
     num_hosts: int = 1

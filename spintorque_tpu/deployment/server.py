@@ -15,8 +15,8 @@ Endpoints:
 
 Runs the (potentially slow, device-touching) health checks on a background
 refresh thread so probe requests answer from the latest snapshot in O(us)
-instead of compiling programs inside the request path — one TPU process
-rule: the server shares the chip with the training/serving process it
+instead of compiling programs inside the request path — one process per
+card: the server shares the chip with the training/serving process it
 monitors, so probes must never enqueue device work concurrently.
 """
 

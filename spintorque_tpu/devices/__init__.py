@@ -1,6 +1,6 @@
 """Device models: parameter pytrees + pure per-type physics functions.
 
-TPU counterpart of the reference device layer
+Counterpart of the reference device layer
 (spin_torque_gym/devices/__init__.py:10-41).
 """
 

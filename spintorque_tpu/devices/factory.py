@@ -1,6 +1,6 @@
 """Device factory: registry + construction of device parameter pytrees.
 
-TPU counterpart of the reference DeviceFactory (spin_torque_gym/devices/
+Counterpart of the reference DeviceFactory (spin_torque_gym/devices/
 device_factory.py:18-265). Instead of instantiating per-device Python
 objects, creation yields a ``Device`` facade binding a static device type to
 a DeviceParams pytree plus the pure per-type functions - usable standalone

@@ -1,7 +1,7 @@
 """Device parameter structs and canonical defaults.
 
 The reference models devices as Python classes holding a dict of scalars
-(spin_torque_gym/devices/base_device.py:13-33). TPU-natively a "device" is a
+(spin_torque_gym/devices/base_device.py:13-33). Here a "device" is a
 struct-of-arrays parameter pytree living in HBM: every field is a scalar
 (shared across the env batch) or a (B,) array (per-env heterogeneous device
 sweeps at no extra cost). The canonical default parameter sets reproduce the
@@ -14,7 +14,7 @@ from typing import Any, Dict
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from ..constants import EPSILON0
 from ..physics.llgs import LLGSParams
@@ -244,7 +244,7 @@ def make_device_params(
     validate: bool = True,
 ) -> DeviceParams:
     """Build a DeviceParams pytree for ``device_type`` with optional
-    overrides (the TPU analog of DeviceFactory.create_device,
+    overrides (the on-device analog of DeviceFactory.create_device,
     device_factory.py:49-77)."""
     merged = default_device_dict(device_type)
     if overrides:

@@ -1,6 +1,6 @@
 """Skyrmion device-level physics functions.
 
-TPU counterpart of the reference SkyrmionDevice methods
+Counterpart of the reference SkyrmionDevice methods
 (spin_torque_gym/devices/skyrmion_device.py:16-477): Thiele-equation
 velocity, Hall angle, exchange length, skyrmion energy, stability factor
 and count-dependent resistance - as pure batched jnp functions. The

@@ -1,6 +1,6 @@
 """RL environments: vectorized functional cores + Gymnasium adapters.
 
-TPU counterpart of spin_torque_gym/envs (__init__.py:14-33).
+Counterpart of spin_torque_gym/envs (__init__.py:14-33).
 """
 
 from .array import (

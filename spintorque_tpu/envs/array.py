@@ -1,4 +1,4 @@
-"""Vectorized crossbar array environment: the TPU-native SpinTorqueArray-v0.
+"""Vectorized crossbar array environment: SpinTorqueArray-v0 on the accelerator.
 
 Functional counterpart of the reference SpinTorqueArrayEnv
 (spin_torque_gym/envs/array_env.py:20-755). A batch of B independent N=R*C
@@ -21,7 +21,7 @@ Reference semantics preserved deliberately (for parity):
   * thermal fluctuations are accepted in the config but never applied
     (the reference's inline dynamics have no thermal term)
 
-``coupling_update='simultaneous'`` (opt-in, TPU-first) replaces the
+``coupling_update='simultaneous'`` (opt-in, accelerator-first) replaces the
 reference's sequential-in-place semantics with the physically sensible
 simultaneous update: every substep assembles ALL devices' coupling fields
 from the same pre-substep pattern in one (N,N)x(B,N,3) einsum and advances
@@ -40,7 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from ..constants import GAMMA
 from ..devices import make_device_params
@@ -292,11 +292,12 @@ class SpinTorqueArrayEnv:
         e = e / jnp.linalg.norm(e)
         k_u = p.uniaxial_anisotropy
         ms = p.saturation_magnetization
-        cos_t = pattern[:, d, :] @ e
+        hi = jax.lax.Precision.HIGHEST  # float32 physics, never TF32
+        cos_t = jnp.matmul(pattern[:, d, :], e, precision=hi)
         h = (2.0 * k_u / (MU0 * ms)) * cos_t[:, None] * e[None, :]
         # coupling: sum_j C[d, j] * m_j over the CURRENT (partially updated)
         # pattern - one contraction replaces the reference's Python loop.
-        h = h + jnp.einsum("n,bnc->bc", self.coupling[d], pattern)
+        h = h + jnp.einsum("n,bnc->bc", self.coupling[d], pattern, precision=hi)
         return h
 
     def _device_update(self, m, h_eff, current, duration):
@@ -339,9 +340,11 @@ class SpinTorqueArrayEnv:
         act = (mask & (jnp.abs(current)[:, None] > 1e-12))[:, :, None]
 
         def substep(_, m):
-            cos_t = jnp.einsum("bnc,c->bn", m, e)
+            # HIGHEST: float32 physics contractions must not run in TF32.
+            cos_t = jnp.einsum("bnc,c->bn", m, e, precision=jax.lax.Precision.HIGHEST)
             h = h_k * cos_t[..., None] * e
-            h = h + jnp.einsum("nm,bmc->bnc", self.coupling, m)
+            h = h + jnp.einsum("nm,bmc->bnc", self.coupling, m,
+                               precision=jax.lax.Precision.HIGHEST)
             prec = -_HARDCODED_GAMMA * jnp.cross(m, h)
             dmdt = prec + _HARDCODED_ALPHA * jnp.cross(m, prec)
             dmdt = dmdt + 0.1 * j * jnp.cross(

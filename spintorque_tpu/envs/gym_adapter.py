@@ -1,7 +1,7 @@
 """Gymnasium adapters over the functional vectorized environments.
 
 The functional API (envs/spin_torque.py) is the fast path: jitted, batched,
-TPU-resident. These adapters provide the reference's Gymnasium surface
+device-resident. These adapters provide the reference's Gymnasium surface
 (spin_torque_env.py:26-745) for compatibility with stable-baselines3 and
 other host-loop RL libraries:
 
@@ -141,7 +141,7 @@ class GymSpinTorqueEnv(gym.Env):
         seed: Optional[int] = None,
         batch_size: int = 1,
         dtype: str | None = None,
-        # TPU-native integrator knobs beyond the reference surface — routed
+        # Integrator knobs beyond the reference surface — routed
         # explicitly so they cannot be silently swallowed by ``extra``
         # (review finding). None = "not supplied": only user-provided
         # values are forwarded, so SpinTorqueEnvConfig stays the single
@@ -151,15 +151,13 @@ class GymSpinTorqueEnv(gym.Env):
         noise_mode: str | None = None,
         rk4_noise: str | None = None,
         use_pallas: bool | None = None,
-        bf16_rhs: bool | None = None,
         **extra,
     ):
         # This adapter is the reference-faithful compatibility surface; the
         # reference's freeze-on-blowup semantics (PulseResult.failed) depend
         # on float64 overflow thresholds, so it uses float64 whenever x64 is
-        # enabled (the parity/test configuration). On backends without x64
-        # (TPU) it falls back to float32; the functional/vector API defaults
-        # to float32 everywhere for speed.
+        # enabled (the parity/test configuration), and float32 otherwise;
+        # the functional/vector API defaults to float32 everywhere for speed.
         _warn_ignored_kwargs("GymSpinTorqueEnv", extra)
         if dtype is None:
             dtype = "float64" if jax.config.jax_enable_x64 else "float32"
@@ -189,7 +187,7 @@ class GymSpinTorqueEnv(gym.Env):
             k: v for k, v in dict(
                 method=method, max_substeps=max_substeps,
                 noise_mode=noise_mode, rk4_noise=rk4_noise,
-                use_pallas=use_pallas, bf16_rhs=bf16_rhs,
+                use_pallas=use_pallas,
             ).items() if v is not None
         })
         self._build_env()

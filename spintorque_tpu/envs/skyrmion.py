@@ -1,4 +1,4 @@
-"""Vectorized skyrmion racetrack environment: TPU-native SkyrmionRacetrack-v0.
+"""Vectorized skyrmion racetrack environment: SkyrmionRacetrack-v0 on the accelerator.
 
 Functional counterpart of the reference SkyrmionRacetrackEnv
 (spin_torque_gym/envs/skyrmion_env.py:20-870). A batch of B racetracks, each
@@ -27,7 +27,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .. import struct
 
 from ..constants import KB_SOLVER
 from ..rewards import CompositeReward, RewardContext

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's RobustEnvironmentWrapper
 (spin_torque_gym/utils/robust_environment.py:18-461): retries, timeouts,
-sanitized outputs and fallback results around reset/step. On TPU the
+sanitized outputs and fallback results around reset/step. On the device the
 underlying env is already exception-free by construction, so the wrapper's
 main jobs are host-side input sanitization, failure accounting and fallback
 responses for adapter-level errors (bad action shapes, device loss).

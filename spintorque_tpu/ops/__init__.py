@@ -1,5 +1,10 @@
-"""Hand-written TPU kernels (Pallas) for the hottest paths."""
+"""Hand-written GPU kernels (Pallas, Triton route) for the hottest paths."""
 
-from .pallas_integrator import integrate_pulse_pallas, pallas_supported
+from .pallas_integrator import (
+    integrate_pulse_pallas,
+    interpret_mode,
+    pallas_supported,
+    select_kernel,
+)
 
-__all__ = ["integrate_pulse_pallas", "pallas_supported"]
+__all__ = ["integrate_pulse_pallas", "interpret_mode", "pallas_supported", "select_kernel"]

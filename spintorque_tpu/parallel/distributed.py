@@ -1,11 +1,11 @@
 """Multi-host initialization and cross-host utilities.
 
 The reference has no distributed backend at all (SURVEY.md section 5:
-"Distributed communication backend: absent"). Here multi-host pod slices are
+"Distributed communication backend: absent"). Here multi-host runs are
 first-class: call ``initialize()`` once per host process before building a
-mesh; JAX's distributed runtime handles rendezvous and the ICI/DCN fabric,
-and XLA inserts collectives from sharding annotations - no hand-written
-NCCL/MPI analog is needed or wanted on TPU.
+mesh; JAX's distributed runtime handles rendezvous and the NVLink/network
+fabric, and XLA inserts collectives from sharding annotations - no hand-written
+NCCL/MPI analog is needed or wanted on the accelerator.
 """
 
 from __future__ import annotations
@@ -21,11 +21,11 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed for a multi-host pod slice.
+    """Initialize jax.distributed for a multi-host run.
 
     No-ops when running single-process (the common single-host case) so the
-    same training script runs unchanged from 1 chip to a full pod.
-    Arguments default to the standard JAX env vars / TPU metadata.
+    same training script runs unchanged from 1 card to many hosts.
+    Arguments default to the standard JAX env vars.
     """
     if num_processes is None:
         num_processes = int(os.environ.get("JAX_NUM_PROCESSES", "1"))

@@ -2,7 +2,7 @@
 
 First-class replacement for the reference's in-process scaling scaffolding
 (utils/concurrency.py thread pools, utils/scaling.py AutoScaler/LoadBalancer,
-utils/scalable_environment.py - SURVEY.md section 2.5): on TPU, scale-out is
+utils/scalable_environment.py - SURVEY.md section 2.5): on the accelerator, scale-out is
 a device mesh with the env batch sharded across chips. Every env is
 independent, so the hot loop needs ZERO cross-chip collectives; ICI is used
 only for metric reductions (psum of returns/success counts) and optional

@@ -70,8 +70,7 @@ def rollout(
         return (next_state, ts.obs), record
 
     keys = jax.random.split(key, num_steps)
-    # unroll=2: a rolled While around the Pallas pulse kernel with a dynamic
-    # scalar-prefetch trip bound is ~4x slower on TPU; see docs/PERFORMANCE.md.
+    # unroll=2 stays until a card measurement decides it.
     (state, obs), traj = jax.lax.scan(step_fn, (state, obs), keys, unroll=2)
     return state, obs, traj
 

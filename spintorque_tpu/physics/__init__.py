@@ -1,6 +1,6 @@
 """Physics engine: batched LLGS dynamics, thermal models, materials.
 
-TPU-native counterpart of the reference physics layer
+Accelerator-native counterpart of the reference physics layer
 (spin_torque_gym/physics/__init__.py:10-22).
 """
 

@@ -1,7 +1,7 @@
 """Adaptive-step LLGS integration: embedded Dormand-Prince RK5(4) for the
 nonstiff names and 3-stage Radau IIA (order 5) for the stiff names.
 
-TPU counterpart of the reference's SciPy-backed adaptive solver
+Counterpart of the reference's SciPy-backed adaptive solver
 (spin_torque_gym/physics/llgs_solver.py:21-305, scipy.integrate.solve_ivp
 with methods RK45/DOP853/Radau/BDF/LSODA). SciPy's steppers are host-side
 and per-device; here each method runs inside a single jitted
@@ -262,7 +262,7 @@ def _integrate_implicit_midpoint(
     high-damping/strong-anisotropy regime the reference reaches for scipy's
     Radau/BDF/LSODA, llgs_solver.py:26,35).
 
-    TPU-native construction - everything is batched elementwise VPU math
+    accelerator-native construction - everything is batched elementwise VPU math
     inside one lax.while_loop:
       * full Newton on the 3-dim per-env system; the Jacobian's three
         columns come from three jax.jvp calls on the batched RHS (no vmap,
@@ -411,7 +411,7 @@ def _integrate_radau5(
     implicit midpoint needs O((1/tol)^(1/2)) — measured >=10x fewer accepted
     steps on the stiff high-damping case (scripts/bench_stiff_solvers.py).
 
-    TPU-native construction, one jitted ``lax.while_loop`` for the whole
+    accelerator-native construction, one jitted ``lax.while_loop`` for the whole
     batch with per-env (t, dt) masking:
       * FULL Newton on the 9-dim per-env stage system: each iteration
         linearizes the batched RHS at each of the 3 stage values (three

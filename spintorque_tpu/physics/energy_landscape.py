@@ -1,6 +1,6 @@
 """Single-domain magnetic energy landscape analysis.
 
-TPU counterpart of spin_torque_gym/physics/energy_landscape.py (:14-357).
+Counterpart of spin_torque_gym/physics/energy_landscape.py (:14-357).
 The reference finds stable states with per-point SciPy BFGS loops and scans
 phase diagrams point by point; here every analysis is a single vmapped/jitted
 evaluation over (theta, phi) grids - the whole landscape in one device pass.

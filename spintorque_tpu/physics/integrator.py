@@ -1,6 +1,6 @@
 """Fixed-step batched LLGS pulse integrator.
 
-This is the TPU replacement for the reference's Python-level hot loop
+This replaces the reference's Python-level hot loop
 (spin_torque_gym/physics/simple_solver.py:136-179: ~1000 RK4 substeps per
 1 ns pulse, one device at a time, ~1.8 s per env step). Here the whole batch
 advances in lockstep inside a single jit-compiled ``lax.while_loop`` whose
@@ -52,7 +52,7 @@ class IntegratorConfig(NamedTuple):
     max_substeps: int = 5120  # static upper bound on the masked loop
     thermal: bool = False
     noise_mode: str = "reference"  # 'reference' | 'physical'
-    use_pallas: bool = False  # fast VMEM-resident kernel (ops/pallas_integrator)
+    use_pallas: bool = False  # fused GPU kernel (ops/pallas_integrator)
     # RK4 thermal-field sampling:
     #   'per_stage'   - fresh iid field at every RHS evaluation, mirroring the
     #                   reference (simple_solver.py draws inside each call).
@@ -61,16 +61,8 @@ class IntegratorConfig(NamedTuple):
     #                   since the four iid draws average.
     #   'per_substep' - ONE field realization held constant across the four
     #                   stages (the standard SDE treatment; stochastic Heun
-    #                   already works this way) - and 4x less sampling work,
-    #                   which dominates the thermal hot loop on TPU.
+    #                   already works this way) - and 4x less sampling work.
     rk4_noise: str = "per_stage"
-    # bf16 RHS variant of the Pallas kernel (sweep workloads that tolerate
-    # reduced derivative precision): stage arithmetic runs in bfloat16 while
-    # the carried state, accumulation, renormalization, and the noise
-    # transcendentals stay float32. Kernel-only knob - the XLA fallback and
-    # the parity paths always compute in full precision. Recorded speed and
-    # accuracy-vs-f32: docs/BENCH_BF16_TPU_v5e.json.
-    bf16_rhs: bool = False
 
 
 def max_substeps_for(max_duration: float, max_step: float = 1e-12) -> int:
@@ -223,17 +215,16 @@ def integrate_pulse(
         key: PRNG key (required when config.thermal).
         temperature: scalar or (B,) Kelvin.
         mesh: optional jax.sharding.Mesh when the batch is sharded over
-            ``data_axis`` - makes the Pallas fast path's duration sort run
-            per shard (zero data collectives). The XLA path needs no mesh:
+            ``data_axis`` - makes the GPU kernel run per shard under
+            shard_map (zero data collectives). The XLA path needs no mesh:
             it is elementwise and auto-partitions collective-free.
     """
     mx0, my0, mz0 = m0
     dtype = jnp.result_type(mx0)
 
     if config.use_pallas:
-        # Fast path: whole masked loop in one VMEM-resident Pallas kernel.
-        # Callers are responsible for checking ops.pallas_supported at build
-        # time (the env and solver facades do).
+        # Fast path: a whole pulse in one kernel launch. Callers resolve
+        # use_pallas at build time (ops.pallas_integrator.select_kernel).
         from ..ops.pallas_integrator import integrate_pulse_pallas
 
         m, n, dt, failed = integrate_pulse_pallas(

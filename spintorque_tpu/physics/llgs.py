@@ -1,14 +1,13 @@
 """Batched Landau-Lifshitz-Gilbert-Slonczewski (LLGS) right-hand side.
 
-TPU-native design notes
------------------------
+Accelerator-native design notes
+-------------------------------
 The reference evaluates the LLGS RHS one scalar 3-vector at a time inside a
 Python loop (reference: spin_torque_gym/physics/simple_solver.py:297-388).
 Here the state for a whole batch of B independent device instances is kept as
-three (B,)-shaped component arrays (structure-of-arrays). On TPU a (B, 3)
-array wastes 125/128 vector lanes in the minor dimension; component arrays
-map every lane onto useful work and let XLA fuse the entire RHS into a single
-elementwise kernel.
+three (B,)-shaped component arrays (structure-of-arrays): one env per
+lane, contiguous loads for each component, and XLA fuses the entire RHS into
+a single elementwise kernel.
 
 Physics semantics (matching simple_solver.py so that deterministic
 fixed-seed trajectories agree with the reference at matched precision):
@@ -30,7 +29,7 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from ..constants import GAMMA, KB_SOLVER, MU0
 

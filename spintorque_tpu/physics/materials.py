@@ -5,7 +5,7 @@ materials.py:46-169 - material constants are data, not code) with the same
 capabilities: temperature-adjusted properties, bilayer averaging, JSON
 import/export, and per-device-type recommendations (:197-421). Arrays of
 temperatures are supported (vectorized with numpy; these run host-side at
-setup time, not in the TPU hot loop).
+setup time, not in the device hot loop).
 """
 
 from __future__ import annotations

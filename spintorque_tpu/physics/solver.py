@@ -4,7 +4,7 @@
 (SimpleLLGSSolver / RobustLLGSSolver / ScalableLLGSSolver / VectorizedSolver,
 spin_torque_gym/physics/simple_solver.py, utils/robust_solver.py,
 utils/scalable_solver.py, utils/vectorized_operations.py) collapsed into one
-jit-compiled batched object. Batching *is* the scaling strategy on TPU, so the
+jit-compiled batched object. Batching *is* the scaling strategy on the accelerator, so the
 reference's thread pools, retry ladders and result caches have no analog here;
 robustness is provided by construction (masked loop, NaN-guarded renormalize
 every substep - there is no exception path to retry).
@@ -35,8 +35,8 @@ def _solve_final_jit(m, span, current, params, config: IntegratorConfig,
                      temperature, key, thermal: bool):
     """Whole-solve jitted core: one compiled program per (shape, config).
 
-    Jitting end-to-end matters doubly on remote-compiled TPU backends where
-    every eager op is its own program compile.
+    Jitting end-to-end matters on an accelerator, where every eager op is
+    its own dispatched program.
     """
     from .llgs import normalize_with_fallback
 
@@ -100,7 +100,7 @@ def _normalized_trivial(m: np.ndarray) -> np.ndarray:
 
 
 class LLGSSolver:
-    """Batched fixed-step LLGS solver (jit-compiled, TPU-resident).
+    """Batched fixed-step LLGS solver (jit-compiled, device-resident).
 
     Parameters mirror the reference SimpleLLGSSolver constructor
     (simple_solver.py:24-45); rtol/atol are accepted for API compatibility
@@ -219,7 +219,7 @@ class LLGSSolver:
 
 
 # Aliases mirroring the reference's public names (physics/__init__.py:10-22,
-# utils/robust_solver.py:22, utils/scalable_solver.py:23). On TPU they are the
+# utils/robust_solver.py:22, utils/scalable_solver.py:23). Here they are the
 # same batched object: robustness and scale come from the compiled design.
 SimpleLLGSSolver = LLGSSolver
 RobustLLGSSolver = LLGSSolver
@@ -233,7 +233,7 @@ class AdaptiveLLGSSolver:
     class (spin_torque_gym/physics/llgs_solver.py:21-60,
     ``LLGSSolver(method='RK45', rtol=..., atol=...)`` with methods
     'RK45'/'DOP853'/'Radau'/'BDF'/'LSODA'), delegating to the batched
-    TPU-native integrators in physics/adaptive.py: the explicit names run
+    accelerator-native integrators in physics/adaptive.py: the explicit names run
     the embedded Dormand-Prince RK5(4) pair, the stiff names run the
     3-stage Radau IIA (order 5, L-stable, full Newton on the batched 9-dim
     stage system; golden-tested against scipy Radau and matching its

@@ -1,6 +1,6 @@
 """Thermal fluctuation models and stability analytics.
 
-TPU-native counterpart of the reference ThermalFluctuations
+Accelerator-native counterpart of the reference ThermalFluctuations
 (spin_torque_gym/physics/thermal_model.py). The in-loop thermal *field* lives
 in ``integrator.py`` (counter-based threefry, fused into the RHS); this module
 provides the analytic/stochastic utilities around it: Brown noise strength,

@@ -1,6 +1,6 @@
 """Batched magnetics vector operations.
 
-TPU counterpart of the reference's vectorized-NumPy tier
+Counterpart of the reference's vectorized-NumPy tier
 (spin_torque_gym/utils/vectorized_operations.py:15-499 - its batched Euler
 solver is subsumed by physics/integrator.py, which also carries the
 spin-torque term the reference's batched RHS silently drops, :172-220).

@@ -1,9 +1,9 @@
 """Quantum add-on tier: state-vector simulation, QAOA/VQE optimizers,
 surface-code error correction, hybrid scheduling, benchmark/verification.
 
-TPU-native counterpart of the reference's quantum/ package (SURVEY.md
+Accelerator-native counterpart of the reference's quantum/ package (SURVEY.md
 section 2.8, ~7k LoC of per-amplitude NumPy loops). Everything here runs as
-jitted batch programs: gates are MXU tensordots, Monte-Carlo error trials
+jitted batch programs: gates are real tensordots, Monte-Carlo error trials
 are GF(2) matmuls, and variational optimizers use exact autodiff gradients.
 The reference's unreproducible performance claims (SURVEY.md section 6) are
 NOT reproduced; quantum/advantage_verification.py provides the honest

@@ -5,7 +5,7 @@ Counterpart of the reference's quantum/energy_landscape.py (720 LoC:
 runs a NumPy "VQE" with finite-difference gradients over a hand-rolled
 state-vector loop; here the landscape Hamiltonian is exact and the VQE is a
 jit-compiled Adam loop with EXACT autodiff gradients through the batched
-state-vector simulator - every optimization step is one fused TPU program.
+state-vector simulator - every optimization step is one fused device program.
 
 Encoding: the single-domain energy E(theta, phi) (physics/energy_landscape.py,
 reference energy_landscape.py:36-71) is discretized on a 2^n_theta x 2^n_phi

@@ -1,11 +1,11 @@
-"""Topological / surface-code error correction, batched on TPU.
+"""Topological / surface-code error correction, batched on the accelerator.
 
 Counterpart of the reference's quantum/error_correction.py (1040 LoC:
 ``SkyrmionErrorCorrection``, ``TopologicalProtection``,
 ``SurfaceCodeErrorCorrection``, ``LogicalQubitOperations``). The reference
 simulates codes amplitude-by-amplitude in Python loops; here error dynamics
 use the *Pauli-frame* picture: errors are binary vectors, syndrome extraction
-is a GF(2) matrix-vector product (one f32 matmul + mod 2 on the MXU), and
+is a GF(2) matrix-vector product (one f32 matmul + mod 2), and
 Monte-Carlo trials batch along a leading axis - a million decode trials is a
 (1e6, n) @ (n, s) matmul, not a loop.
 

@@ -5,7 +5,7 @@ Counterpart of the reference's quantum/hybrid_computing.py (1743 LoC:
 ``HybridMultiDeviceSimulator``, ``AdaptiveResourceOptimizer``). The reference
 threads task objects through Python queues and calls a per-amplitude NumPy
 simulator; here both execution paths are jitted batch programs and the
-scheduler's job is the honest one on TPU: decide which REPRESENTATION
+scheduler's job is the honest one on the accelerator: decide which REPRESENTATION
 (state-vector register vs classical magnetization batch) a task needs and
 pick batch sizes that fit HBM - not juggle threads.
 
@@ -271,16 +271,18 @@ class HybridMultiDeviceSimulator:
 
 
 class AdaptiveResourceOptimizer:
-    """Pick batch size / precision / path so the working set fits HBM.
+    """Pick batch size / precision / path so the working set fits device memory.
 
-    The reference's AdaptiveResourceOptimizer tunes thread counts; the TPU
-    equivalent tunes the things that matter here: state-vector feasibility
-    (16 bytes * 2^n * batch), classical batch padding to lane multiples
-    (128), and dtype selection.
+    The reference's AdaptiveResourceOptimizer tunes thread counts; the
+    accelerator equivalent tunes the things that matter here: state-vector
+    feasibility (16 bytes * 2^n * batch) and dtype selection. ``hbm_bytes``
+    defaults to the device's own limit (``memory_stats()['bytes_limit']``).
     """
 
-    def __init__(self, hbm_bytes: float = 16e9, reserve_fraction: float = 0.2):
-        self.hbm_bytes = hbm_bytes
+    def __init__(self, hbm_bytes: Optional[float] = None, reserve_fraction: float = 0.2):
+        from ..utils.performance import device_memory_bytes
+
+        self.hbm_bytes = device_memory_bytes() if hbm_bytes is None else hbm_bytes
         self.reserve = reserve_fraction
 
     def max_statevector_batch(self, n_qubits: int, dtype_bytes: int = 8) -> int:

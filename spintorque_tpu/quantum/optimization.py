@@ -3,7 +3,7 @@
 Counterpart of the reference's quantum/optimization.py (754 LoC:
 ``QuantumMLDeviceOptimizer``, ``IterationFreeQAOA``, ``OptimizationResult``).
 The reference's "iteration-free QAOA" is a NumPy loop sampling random angles;
-here the same idea is made literal and TPU-shaped: the full (gamma, beta)
+here the same idea is made literal and accelerator-shaped: the full (gamma, beta)
 angle grid is evaluated in ONE vmapped state-vector batch (grid^2 circuit
 executions as a single XLA program - no variational loop at all), and the
 returned angles are exact-expectation optima, not samples.

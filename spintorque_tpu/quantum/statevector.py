@@ -1,6 +1,6 @@
 """Batched state-vector quantum simulation core (real-pair representation).
 
-TPU-native foundation for the quantum add-on tier (SURVEY.md section 2.8).
+accelerator-native foundation for the quantum add-on tier (SURVEY.md section 2.8).
 The reference implements its "quantum" modules as per-amplitude Python/NumPy
 loops inside ~6k LoC of scaffolding (quantum/hybrid_computing.py:449-736
 ProgrammableQuantumSimulator, research/quantum_machine_learning.py). Here the
@@ -10,11 +10,10 @@ simulator is a set of pure functions over REAL-PAIR states:
 
 Complex arithmetic is expanded into real matmuls explicitly ((a+bi)(c+di)
 -> 4 real tensordots) rather than using complex64, for two reasons:
-  * it is the MXU-shaped form - XLA lowers complex matmul to exactly these
-    real products anyway, and f32 matmuls are the native fast path;
-  * experimental TPU backends (e.g. tunneled single-chip plugins) often do
-    not implement complex primitives at all; the real-pair form runs
-    everywhere float32 runs.
+  * it is the matmul-shaped form - XLA lowers complex matmul to exactly
+    these real products anyway, and f32 matmuls are the native fast path;
+  * some accelerator backends do not implement complex primitives at all;
+    the real-pair form runs everywhere float32 runs.
 
 Gates are (2, 2^k, 2^k) real pairs; ``GATES`` also keeps the plain complex
 NumPy matrices for host-side algebra (circuit optimization / compilation).
@@ -194,9 +193,9 @@ def _wire_axes(n_qubits: int, wires: Sequence[int]) -> Tuple[int, ...]:
 def _tensordot_restore(gmat, psi, axes, n, k):
     """tensordot over wire axes + transpose restoring original axis order.
 
-    precision=HIGHEST: TPU matmuls default to bf16 passes, which loses ~3
-    decimal digits per gate on the state's unit norm; gate application must
-    run the full-f32 MXU path (cost is negligible at 2^k x 2^k x 2^(n-k)).
+    precision=HIGHEST: float32 matmuls may otherwise run in TF32 on the GPU,
+    which loses ~3 decimal digits per gate on the state's unit norm; gate
+    application must run full f32 (cost is negligible at 2^k x 2^k x 2^(n-k)).
     """
     out = jnp.tensordot(
         gmat, psi, axes=(tuple(range(k, 2 * k)), axes),
@@ -214,15 +213,15 @@ def _tensordot_restore(gmat, psi, axes, n, k):
 def apply_gate(state: jnp.ndarray, gate: jnp.ndarray, wires: Sequence[int]) -> jnp.ndarray:
     """Apply a k-qubit gate to ``wires`` of a (2, 2**n) real-pair state.
 
-    (G_r + i G_i)(psi_r + i psi_i): four real tensordots - on TPU each is a
-    (2^k x 2^k) @ (2^k x 2^(n-k)) f32 matmul on the MXU.
+    (G_r + i G_i)(psi_r + i psi_i): four real tensordots, each a
+    (2^k x 2^k) @ (2^k x 2^(n-k)) f32 matmul.
 
     ``gate`` is a (2, 2^k, 2^k) real pair (see ``gate_pair``); a plain
     complex matrix is converted on the fly for convenience.
     """
     n = int(round(math.log2(state.shape[-1])))
     # Accept host-side complex matrices for convenience; convert BEFORE any
-    # device transfer (experimental TPU backends reject complex buffers).
+    # device transfer (some accelerator backends reject complex buffers).
     if isinstance(gate, np.ndarray) and (np.iscomplexobj(gate) or gate.ndim == 2):
         gate = gate_pair(gate)
     else:

@@ -1,12 +1,12 @@
 """Research tooling: parameter optimization, benchmarking, validation.
 
-Honest TPU counterpart of the reference's research/quantum add-on tier
+Honest counterpart of the reference's research/quantum add-on tier
 (SURVEY.md section 2.8). The reference ships ~10k LoC of classical NumPy
 simulations under quantum branding with unreproducible performance claims;
 this module provides the same *capabilities* - device-parameter
 optimization, protocol search, benchmark suites, statistical validation,
 policy comparison - as classical population methods whose populations
-evaluate in single vmapped physics calls on TPU.
+evaluate in single vmapped physics calls on the accelerator.
 """
 
 from .sweeps import (

@@ -3,7 +3,7 @@
 Counterpart of the reference's benchmark/validation tier
 (quantum/benchmarking.py, research/validation_framework.py,
 research/comparative_algorithms.py - SURVEY.md section 2.8), rebuilt as a
-reproducible measurement harness over the real TPU engine: standardized
+reproducible measurement harness over the real on-device engine: standardized
 scenario suite, statistics with bootstrap confidence intervals, baseline
 policy comparisons, and JSON report output.
 """

@@ -42,7 +42,7 @@ class OptimalControlBaseline:
     an energy penalty (the reference's objective shape,
     comparative_algorithms.py:49-126). ``n_restarts`` protocols optimize
     simultaneously: parameters have a leading vmap axis, every Adam step is
-    one fused TPU program integrating n_restarts full protocols.
+    one fused device program integrating n_restarts full protocols.
     """
 
     def __init__(

@@ -1,13 +1,13 @@
 """Device-parameter and pulse-protocol optimization on batched physics.
 
-Honest TPU counterpart of the reference's "quantum-inspired" optimizer tier
+Honest counterpart of the reference's "quantum-inspired" optimizer tier
 (spin_torque_gym/quantum/optimization.py, research/novel_algorithms.py,
 research/quantum_spintronics.py - all of which are classical NumPy searches
 under quantum naming; SURVEY.md section 2.8). Here the same capabilities -
 optimizing device parameters or switching protocols against a simulated
 objective - are implemented as classical population methods whose *entire
 population evaluates in one vmapped physics call*: a 4096-candidate
-generation costs one fused TPU step.
+generation costs one fused device step.
 
 Provided:
   * grid_search        - exhaustive vmapped sweep

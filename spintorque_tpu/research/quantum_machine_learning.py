@@ -34,7 +34,7 @@ class QuantumSpinOptimizer:
     Maps an Ising problem (couplings J_ij, fields h_i over classical spins
     s in {-1, +1}) to a diagonal Hamiltonian and minimizes it with the
     symmetry-enhanced VQE. Exact cost enumeration is one (2^n, n) @ (n, n)
-    batched contraction - the TPU-shaped path for n <= 14.
+    batched contraction - the accelerator-shaped path for n <= 14.
     """
 
     def __init__(self, n_layers: int = 3, iterations: int = 300, seed: int = 0):

@@ -6,9 +6,9 @@ ensembles, and anisotropy/temperature ladders via the integrator's per-env
 parameter support. The reference runs such sweeps as nested host loops
 (e.g. the temperature sweep at thermal_model.py:274-336, the switching
 studies in research/); here the WHOLE grid x ensemble is one batch through
-the pulse integrator - the same Pallas hot path as the RL envs - and the
-batch axis shards over a ('data','model') mesh, so a pod slice evaluates
-N-chip-sized diagrams with zero cross-chip traffic until the final
+the pulse integrator - the same GPU kernel as the RL envs - and the
+batch axis shards over a ('data','model') mesh, so N cards evaluate
+N-card-sized diagrams with zero cross-chip traffic until the final
 ensemble reduction (computed locally per point; points never straddle
 shards when sizes divide the mesh).
 
@@ -100,8 +100,8 @@ def switching_probability_diagram(
     0.5 degree tilt so deterministic torque is nonzero at the pole) and
     reports the fraction of the ensemble that ends with sign(m_z) flipped.
     One ``integrate_pulse`` call covers the whole grid x ensemble; with a
-    mesh, the batch shards over ``data_axis`` and the Pallas fast path
-    sorts durations per shard (ops/pallas_integrator.py).
+    mesh, the batch shards over ``data_axis`` and the GPU kernel runs per
+    shard (ops/pallas_integrator.py).
 
     Returns {"currents", "durations", "p_switch" (nJ, nT), "final_mz"}.
     """
@@ -118,15 +118,15 @@ def switching_probability_diagram(
         from ..physics.integrator import max_substeps_for
 
         max_substeps = max_substeps_for(float(jnp.max(durations)))
-    if use_pallas is None:
-        from ..ops.pallas_integrator import pallas_supported, tpu_kernel_available
+    if use_pallas is None or use_pallas:
+        from ..ops.pallas_integrator import pallas_supported, select_kernel
 
         cfg_probe = IntegratorConfig(
             method=method, thermal=True, noise_mode=noise_mode,
             max_substeps=max_substeps,
         )
-        use_pallas = (
-            pallas_supported(params, cfg_probe, dtype) and tpu_kernel_available()
+        use_pallas = select_kernel(
+            use_pallas, pallas_supported(params, cfg_probe, dtype)
         )
     config = IntegratorConfig(
         method=method,

@@ -1,6 +1,6 @@
 """Reward system: pure batched components + composite aggregation.
 
-TPU counterpart of spin_torque_gym/rewards (base_reward.py, composite_reward.py).
+Counterpart of spin_torque_gym/rewards (base_reward.py, composite_reward.py).
 """
 
 from .components import (

@@ -1,6 +1,6 @@
 """Reward component library.
 
-Pure batched reward functions over a RewardContext pytree - the TPU analog of
+Pure batched reward functions over a RewardContext pytree - the on-device analog of
 the reference's callable-dict components (spin_torque_gym/rewards/
 composite_reward.py:317-408 and the env defaults at
 spin_torque_env.py:184-207). Each function maps a RewardContext to a (B,)
@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 
 @struct.dataclass

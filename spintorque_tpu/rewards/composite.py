@@ -1,6 +1,6 @@
 """Composite reward: weighted, normalized, clipped component sum.
 
-TPU counterpart of the reference CompositeReward
+Counterpart of the reference CompositeReward
 (spin_torque_gym/rewards/composite_reward.py:14-314). Components are pure
 batched functions fused into the jitted env step. The reference's running
 normalization over a Python history list becomes an explicit running-moments
@@ -13,7 +13,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from .. import struct
 
 from .components import RewardContext, resolve
 

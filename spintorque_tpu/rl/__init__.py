@@ -1,4 +1,4 @@
-"""Native TPU RL training (replaces the reference's stable-baselines3 shell)."""
+"""Native on-device RL training (replaces the reference's stable-baselines3 shell)."""
 
 from .networks import ActorCritic, continuous_action_transform, sample_continuous
 from .ppo import PPOConfig, PPOTrainer, TrainState

@@ -1,123 +1,130 @@
-"""Policy/value networks for native TPU training.
+"""Policy/value networks for native training.
 
 The reference delegates RL to stable-baselines3 (cli.py:89-107, torch on
-host). Here training is TPU-native: a flax actor-critic whose parameters
-carry PartitionSpec annotations so hidden layers can be tensor-parallel
-sharded over the mesh 'model' axis while the env batch is data-parallel
-over 'data'. For the small default MLP, TP is overkill - the annotations
-exist so the same train step scales to wide policies unchanged.
+host). Here training runs on the accelerator: a plain-JAX actor-critic MLP
+whose parameters come with PartitionSpecs, so hidden layers can be
+tensor-parallel sharded over the mesh 'model' axis while the env batch is
+data-parallel over 'data'. For the small default MLP, TP is overkill - the
+specs exist so the same train step scales to wide policies unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+_ACTIVATIONS = {"tanh": jnp.tanh, "relu": jax.nn.relu, "gelu": jax.nn.gelu}
 
-class ActorCritic(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class ActorCritic:
     """MLP actor-critic.
 
     Continuous mode: outputs (mean, log_std) of a tanh-squashed Gaussian in
     [-1, 1]^act_dim plus the value estimate.
     Discrete mode: outputs logits over num_actions plus the value.
+
+    Parameters are a dict of layers, each ``{"kernel": (in, out), "bias":
+    (out,)}`` in float32, plus ``log_std`` in continuous mode. Kernels take
+    orthogonal inits (scale sqrt(2) in the trunk, 0.01 in the actor head,
+    1.0 in the value head); biases and ``log_std`` start at zero.
     """
 
     action_dim: int
     discrete: bool = False
     hidden_sizes: Sequence[int] = (256, 256)
     activation: str = "tanh"
-    # MXU compute dtype for the Dense layers. None (default) preserves
-    # flax's promotion semantics: inputs keep their dtype (float64 on the
-    # x64 analysis/test backend stays float64 end-to-end). 'bfloat16'
-    # runs the matmuls at the MXU's native rate with float32 params and
-    # optimizer state (flax param_dtype default), and the heads cast back
-    # to float32 before any probability/loss math, so log-prob ratios and
-    # GAE stay in full precision (bench: scripts/bench_ppo.py
-    # --compute-dtype bfloat16; learning gate: examples/train_ppo.py).
+    # Matmul compute dtype. None keeps the inputs' promotion (float64 on
+    # the x64 test backend stays float64 end to end). 'bfloat16' casts
+    # inputs and weights for the matmuls and casts the heads back to
+    # float32 before any probability or loss math.
     compute_dtype: str | None = None
-    # One trunk feeding both heads instead of separate actor/critic MLPs:
-    # halves the trunk matmul work in rollout AND update (the PPO update
-    # is the train step's dominant non-env cost). Standard PPO practice;
-    # default False preserves the recorded artifacts' architecture.
+    # One trunk feeding both heads instead of separate actor/critic MLPs.
     shared_trunk: bool = False
 
-    @nn.compact
-    def __call__(self, obs):
-        act = {"tanh": nn.tanh, "relu": nn.relu, "gelu": nn.gelu}[self.activation]
-        cdtype = None if self.compute_dtype is None else jnp.dtype(self.compute_dtype)
+    def _trunks(self) -> Tuple[str, ...]:
+        return ("shared",) if self.shared_trunk else ("actor", "critic")
 
-        def _out(x):
-            """Head output dtype: full precision under a reduced compute
-            dtype, untouched promotion semantics otherwise."""
-            return x if cdtype is None else x.astype(jnp.float32)
-
-        def trunk(name):
-            x = obs if cdtype is None else obs.astype(cdtype)
+    def _layers(self, obs_dim: int):
+        """(name, in_dim, out_dim, init scale, kernel spec, bias spec)."""
+        layers = []
+        for trunk in self._trunks():
+            d = obs_dim
             for i, h in enumerate(self.hidden_sizes):
                 # TP layout: even layers shard the output dim, odd layers the
                 # input dim, so activations alternate sharded/replicated and
                 # XLA inserts one all-reduce per pair (Megatron layout).
-                kernel_spec = P(None, "model") if i % 2 == 0 else P("model", None)
-                x = nn.Dense(
-                    h,
-                    name=f"{name}_dense_{i}",
-                    dtype=cdtype,
-                    kernel_init=nn.with_partitioning(
-                        nn.initializers.orthogonal(jnp.sqrt(2.0)), kernel_spec
-                    ),
-                    bias_init=nn.with_partitioning(
-                        nn.initializers.zeros_init(),
-                        P("model") if i % 2 == 0 else P(),
-                    ),
-                )(x)
-                x = act(x)
+                if i % 2 == 0:
+                    specs = (P(None, "model"), P("model"))
+                else:
+                    specs = (P("model", None), P())
+                layers.append((f"{trunk}_dense_{i}", d, h, 2.0 ** 0.5) + specs)
+                d = h
+        d = self.hidden_sizes[-1] if self.hidden_sizes else obs_dim
+        head = "actor_logits" if self.discrete else "actor_mean"
+        layers.append((head, d, self.action_dim, 0.01, P(None, None), P()))
+        layers.append(("critic_value", d, 1, 1.0, P(None, None), P()))
+        return layers
+
+    def init(self, key: jax.Array, sample_obs) -> Dict[str, Any]:
+        """Fresh parameters for observations shaped like ``sample_obs``."""
+        layers = self._layers(sample_obs.shape[-1])
+        keys = jax.random.split(key, len(layers))
+        params: Dict[str, Any] = {}
+        for k, (name, d_in, d_out, scale, _, _) in zip(keys, layers):
+            init = jax.nn.initializers.orthogonal(scale)
+            params[name] = {
+                "kernel": init(k, (d_in, d_out), jnp.float32),
+                "bias": jnp.zeros((d_out,), jnp.float32),
+            }
+        if not self.discrete:
+            params["log_std"] = jnp.zeros((self.action_dim,), jnp.float32)
+        return params
+
+    def partition_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The tensor-parallel PartitionSpec tree matching ``params``."""
+        obs_dim = next(iter(params.values()))["kernel"].shape[0]
+        specs: Dict[str, Any] = {
+            name: {"kernel": ks, "bias": bs}
+            for name, _, _, _, ks, bs in self._layers(obs_dim)
+        }
+        if "log_std" in params:
+            specs["log_std"] = P()
+        return specs
+
+    def apply(self, params: Dict[str, Any], obs):
+        """Heads for a batch of observations: (logits, value) or
+        (mean, log_std, value)."""
+        act = _ACTIVATIONS[self.activation]
+        cdtype = None if self.compute_dtype is None else jnp.dtype(self.compute_dtype)
+
+        def dense(name, x):
+            w, b = params[name]["kernel"], params[name]["bias"]
+            dtype = cdtype or jnp.result_type(x, w, b)
+            x, w, b = x.astype(dtype), w.astype(dtype), b.astype(dtype)
+            return jnp.dot(x, w) + b
+
+        def out(x):
+            return x if cdtype is None else x.astype(jnp.float32)
+
+        def trunk(name):
+            x = obs
+            for i in range(len(self.hidden_sizes)):
+                x = act(dense(f"{name}_dense_{i}", x))
             return x
 
         if self.shared_trunk:
             pi = v = trunk("shared")
         else:
-            pi = trunk("actor")
-            v = trunk("critic")
+            pi, v = trunk("actor"), trunk("critic")
+        value = out(dense("critic_value", v).squeeze(-1))
         if self.discrete:
-            logits = nn.Dense(
-                self.action_dim,
-                name="actor_logits",
-                dtype=cdtype,
-                kernel_init=nn.with_partitioning(
-                    nn.initializers.orthogonal(0.01), P(None, None)
-                ),
-            )(pi)
-            head: Tuple = (_out(logits),)
-        else:
-            mean = nn.Dense(
-                self.action_dim,
-                name="actor_mean",
-                dtype=cdtype,
-                kernel_init=nn.with_partitioning(
-                    nn.initializers.orthogonal(0.01), P(None, None)
-                ),
-            )(pi)
-            # Explicit float32: the initializer's default dtype follows
-            # jnp.float_, which is float64 under x64 (the test backend).
-            log_std = self.param(
-                "log_std", nn.initializers.zeros_init(), (self.action_dim,),
-                jnp.float32,
-            )
-            head = (_out(mean), log_std)
-
-        value = nn.Dense(
-            1,
-            name="critic_value",
-            dtype=cdtype,
-            kernel_init=nn.with_partitioning(
-                nn.initializers.orthogonal(1.0), P(None, None)
-            ),
-        )(v)
-        return head + (_out(value.squeeze(-1)),)
+            return out(dense("actor_logits", pi)), value
+        return out(dense("actor_mean", pi)), params["log_std"], value
 
 
 def continuous_action_transform(raw, max_current, max_duration):

@@ -1,4 +1,4 @@
-"""Native TPU PPO trainer.
+"""Native on-device PPO trainer.
 
 Replaces the reference's stable-baselines3 delegation (cli.py:89-129) with a
 fully on-device trainer: rollout (lax.scan over the fused env step), GAE,
@@ -41,7 +41,7 @@ class PPOConfig(NamedTuple):
     max_grad_norm: float = 0.5
     hidden_sizes: Tuple[int, ...] = (256, 256)
     # Network matmul compute dtype ('float32' | 'bfloat16'). bfloat16 runs
-    # the policy/value Dense layers at the MXU's native rate with float32
+    # the policy/value Dense layers in bf16 with float32
     # params/optimizer/loss math (see networks.ActorCritic.compute_dtype).
     compute_dtype: str = "float32"
     # One trunk for both heads (standard PPO option): halves the trunk
@@ -71,9 +71,8 @@ class PPOTrainer:
         self.config = config
         self.mesh = mesh
         if mesh is not None and getattr(env, "mesh", None) is None:
-            # The env must know the mesh so its Pallas fast path sorts pulse
-            # durations per shard (a global argsort would gather the batch
-            # across chips inside the rollout hot loop).
+            # The env must know the mesh so its GPU kernel runs per shard
+            # (no batch data crosses cards inside the rollout hot loop).
             env.mesh = mesh
         if env.config.observation_mode != "vector":
             raise ValueError(
@@ -97,14 +96,11 @@ class PPOTrainer:
     # ------------------------------------------------------------------ setup
 
     def init(self, key: jax.Array) -> TrainState:
-        import flax.linen as nn
-
         k_env, k_net, k_loop = jax.random.split(key, 3)
         env_state, obs = self.env.reset(k_env)
         sample_obs = obs[:1] if not isinstance(obs, dict) else jax.tree.map(lambda x: x[:1], obs)
-        variables = self.network.init(k_net, sample_obs)
-        self.param_specs = nn.get_partition_spec(variables)["params"]
-        params = nn.meta.unbox(variables)["params"]
+        params = self.network.init(k_net, sample_obs)
+        self.param_specs = self.network.partition_specs(params)
         if self.mesh is not None:
             # Place params by their annotated TP PartitionSpecs and shard the
             # env batch over 'data'; XLA propagates the rest.
@@ -131,7 +127,7 @@ class PPOTrainer:
     # ------------------------------------------------------------------ policy
 
     def _policy(self, params, obs, key):
-        out = self.network.apply({"params": params}, obs)
+        out = self.network.apply(params, obs)
         if self.discrete:
             logits, value = out
             action = jax.random.categorical(key, logits)
@@ -147,7 +143,7 @@ class PPOTrainer:
         return env_action, raw, log_prob, value
 
     def _evaluate_actions(self, params, obs, raw_actions):
-        out = self.network.apply({"params": params}, obs)
+        out = self.network.apply(params, obs)
         if self.discrete:
             logits, value = out
             logp_all = jax.nn.log_softmax(logits)
@@ -188,9 +184,7 @@ class PPOTrainer:
 
         key, k_roll, k_perm = jax.random.split(ts.key, 3)
         step_keys = jax.random.split(k_roll, cfg.rollout_steps)
-        # unroll=2: a rolled XLA While around the Pallas pulse kernel with a
-        # data-dependent scalar-prefetch trip bound runs ~4x slower on TPU
-        # (measured 22 ms vs 6 ms per 4096-env step); any unrolling avoids it.
+        # unroll=2 stays until a card measurement decides it.
         (env_state, obs), traj = jax.lax.scan(
             rollout_step, (ts.env_state, ts.obs), step_keys, unroll=2
         )
@@ -232,9 +226,9 @@ class PPOTrainer:
 
         # Bootstrap value for the final observation.
         if self.discrete:
-            _, last_value = self.network.apply({"params": params}, last_obs)
+            _, last_value = self.network.apply(params, last_obs)
         else:
-            _, _, last_value = self.network.apply({"params": params}, last_obs)
+            _, _, last_value = self.network.apply(params, last_obs)
 
         # GAE (reverse scan). Episodes auto-reset, so done masks bootstrap.
         def gae_step(carry, t):

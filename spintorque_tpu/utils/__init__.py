@@ -1,12 +1,12 @@
 """Foundation utilities: monitoring, safety, validation, errors, profiling,
 logging, checkpointing, caching, concurrency, scaling, health.
 
-TPU counterpart of spin_torque_gym/utils (__init__.py:7-23). The reference's
+Counterpart of spin_torque_gym/utils (__init__.py:7-23). The reference's
 three overlapping cache stacks collapse into ONE host-side stack
 (utils/cache.py) - device compute is never cached (jit compilation caching
 replaces memoization, and the reference's result caches were bug sources:
 current-blind solver cache, stale observation cache - see SURVEY.md). The
-thread/process-pool tier is kept surface-compatible but TPU-shaped:
+thread/process-pool tier is kept surface-compatible but accelerator-shaped:
 PhysicsWorkerPool COALESCES submissions into batched device calls,
 AutoScaler tunes the batch size (the chip's real thread count), and
 first-class scale-out remains the mesh sharding in spintorque_tpu.parallel.

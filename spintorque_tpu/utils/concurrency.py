@@ -4,7 +4,7 @@ episodes, parallelism benchmark.
 Counterpart of the reference's utils/concurrency.py (614 LoC: ResourcePool
 :23, PhysicsWorkerPool :123, AsyncEnvironmentManager :297, ParallelBenchmark
 :447, parallel_map/async_cached :561). The reference parallelizes physics by
-fanning solves across Python threads; on TPU that is the WRONG axis - one
+fanning solves across Python threads; on the accelerator that is the WRONG axis - one
 chip wants one big batch, not many small programs. So ``PhysicsWorkerPool``
 keeps the reference's submit/future surface but its workers COALESCE queued
 solves into single vmapped device calls (micro-batching), and

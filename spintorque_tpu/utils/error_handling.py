@@ -1,6 +1,6 @@
 """Exception hierarchy, retry decorator and safe math.
 
-TPU counterpart of spin_torque_gym/utils/error_handling.py (:19-538). The
+Counterpart of spin_torque_gym/utils/error_handling.py (:19-538). The
 jitted hot path cannot raise; numerical robustness there is by construction
 (PulseResult.failed, normalize_with_fallback). These utilities serve
 host-side setup and IO code, preserving the reference's exception taxonomy

@@ -1,6 +1,6 @@
 """Structured logging setup.
 
-TPU counterpart of spin_torque_gym/utils/logging_config.py (:18-269):
+Counterpart of spin_torque_gym/utils/logging_config.py (:18-269):
 JSON-structured formatter, per-subsystem loggers, and a context manager for
 scoped metadata. Multi-host aware: log records carry the JAX process index.
 """

@@ -1,8 +1,8 @@
 """Environment monitoring, safety validation and health reporting.
 
-TPU counterpart of spin_torque_gym/utils/monitoring.py (EnvironmentMonitor
+Counterpart of spin_torque_gym/utils/monitoring.py (EnvironmentMonitor
 :30-268, SafetyWrapper :271-348, MetricsCollector :351-381, HealthMonitor
-:384-410). On TPU the env itself is NaN-guarded and clamped inside the
+:384-410). On the device the env itself is NaN-guarded and clamped inside the
 jitted step, so these classes serve the host loop: aggregating device-side
 metrics, logging, and producing health reports. SafetyWrapper remains
 available for host-side pre-validation of actions with the same clamp

@@ -5,11 +5,11 @@ Counterpart of the reference's utils/performance.py (505 LoC:
 :391, process-global ``get_optimizer`` :500-505). The profiler lives in
 utils/profiling.py and the cache stack in utils/cache.py; this module keeps
 the reference's ``ComputationOptimizer``/``get_optimizer`` surface with the
-optimizations that are real on TPU:
+optimizations that are real on the accelerator:
 
   * host-side memoization via the shared cache stack (the reference's
-    sin/cos lookup tables are pointless next to the VPU's transcendentals);
-  * batch padding to lane multiples (128) so XLA doesn't pad implicitly;
+    sin/cos lookup tables are pointless next to the device's transcendentals);
+  * batch padding to warp multiples (32: the GPU pulse kernel's env block);
   * a process-wide registry of jitted functions with compile/call counters,
     replacing the reference's hand-rolled "JIT" flags with the real thing.
 """
@@ -27,7 +27,19 @@ from .cache import AdaptiveCache, LRUCache
 
 __all__ = ["ComputationOptimizer", "get_optimizer", "pad_batch", "unpad_batch"]
 
-LANE = 128  # TPU minor-dim lane width; pad batches to multiples of this
+LANE = 32  # warp width = the GPU pulse kernel's env block; pad to multiples
+
+
+def device_memory_bytes(device=None) -> float:
+    """The device's memory limit (``memory_stats()['bytes_limit']``).
+
+    Raises where the backend reports none (the CPU): pass the size."""
+    import jax
+
+    stats = (device or jax.devices()[0]).memory_stats()
+    if not stats or "bytes_limit" not in stats:
+        raise ValueError("the device reports no memory limit; pass hbm_bytes")
+    return float(stats["bytes_limit"])
 
 
 def pad_batch(x: np.ndarray, multiple: int = LANE) -> Tuple[np.ndarray, int]:
@@ -110,9 +122,12 @@ class ComputationOptimizer:
             return self._jitted[name]
 
     # -- batch helpers -------------------------------------------------------
-    def optimize_batch_size(self, item_bytes: int, hbm_bytes: float = 16e9,
+    def optimize_batch_size(self, item_bytes: int, hbm_bytes: Optional[float] = None,
                             reserve: float = 0.25) -> int:
-        """Largest lane-aligned batch fitting the HBM budget."""
+        """Largest lane-aligned batch fitting the device-memory budget
+        (``hbm_bytes`` defaults to the device's own limit)."""
+        if hbm_bytes is None:
+            hbm_bytes = device_memory_bytes()
         usable = hbm_bytes * (1.0 - reserve)
         raw = int(usable / max(item_bytes, 1))
         return max(LANE, (raw // LANE) * LANE)

@@ -1,6 +1,6 @@
 """Performance profiling: named host timers + XLA device traces.
 
-TPU counterpart of the reference PerformanceProfiler
+Counterpart of the reference PerformanceProfiler
 (spin_torque_gym/utils/performance.py:391-498) plus what the reference
 lacks: real device-side profiling via jax.profiler (SURVEY.md section 5).
 The reference's AdaptiveCache/ComputationOptimizer memoization tier has no

@@ -3,10 +3,10 @@
 Counterpart of the reference's utils/scaling.py (696 LoC: AutoScaler :34,
 LoadBalancer :224, AdaptiveResourceManager :473). The reference scales the
 number of worker THREADS from CPU/memory pressure; the levers that actually
-matter on TPU are different, and that is what these classes drive:
+matter on the accelerator are different, and that is what these classes drive:
 
   * ``AutoScaler`` tunes the ENV BATCH SIZE from measured env-steps/s
-    (hill-climbing on throughput; batch is the TPU's thread count);
+    (hill-climbing on throughput; batch is the device's parallelism);
   * ``LoadBalancer`` assigns work shares across local devices from measured
     per-device rates (heterogeneous-host case; on a uniform pod slice the
     mesh in spintorque_tpu.parallel supersedes it);

@@ -1,6 +1,6 @@
 """Input sanitization and rate limiting for external-facing surfaces.
 
-TPU counterpart of spin_torque_gym/utils/security.py (:17-483) and
+Counterpart of spin_torque_gym/utils/security.py (:17-483) and
 security_validation.py (:20-569): sanitizers for untrusted config/CLI/API
 inputs, a token-bucket rate limiter for serving deployments, and hashing
 helpers. The jitted compute path never sees untrusted strings; these guards

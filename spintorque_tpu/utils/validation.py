@@ -1,6 +1,6 @@
 """Host-side input validation.
 
-TPU counterpart of spin_torque_gym/utils/validation.py (:20-588). These run
+Counterpart of spin_torque_gym/utils/validation.py (:20-588). These run
 at setup/adapter boundaries (host, numpy); inside the jitted hot path,
 validation is by construction (masked loops, NaN-guarded renormalization).
 """

@@ -1,7 +1,7 @@
 """Visualization: publication-style plots over engine outputs.
 
 Counterpart of spin_torque_gym/visualization/research_plots.py. Matplotlib
-is imported lazily; nothing here touches the TPU hot path.
+is imported lazily; nothing here touches the device hot path.
 """
 
 from .plots import (

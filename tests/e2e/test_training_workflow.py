@@ -68,7 +68,7 @@ def test_protocol_evaluation():
 
 
 def test_domain_randomized_batch():
-    """Per-env heterogeneous device parameters in one batch (the TPU-native
+    """Per-env heterogeneous device parameters in one batch (the accelerator-native
     version of the reference's domain-randomization placeholder)."""
     B = 16
     key = jax.random.PRNGKey(0)

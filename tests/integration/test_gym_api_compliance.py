@@ -79,7 +79,7 @@ def test_gym_adapter_thermal_passes_checker():
 
 
 def test_adapter_routes_integrator_knobs_and_warns_on_unknown():
-    """TPU-native integrator knobs must reach the config through the gym
+    """accelerator-native integrator knobs must reach the config through the gym
     surface, and unknown kwargs must WARN instead of silently running
     default physics (review finding: coupling_update was swallowed)."""
     import warnings

@@ -1,7 +1,7 @@
 """The headline measurement program (bench.measure_env_throughput) must run
-on any backend and report sane rates — docs/BENCH_TPU_v5e.json and the
-driver headline are both produced by this exact function, so a regression
-here silently invalidates the recorded performance story.
+on any backend and report sane rates — the ladder, chip_smoke.py's timing
+phase and the headline are all produced by this exact function, so a
+regression here silently invalidates the recorded performance story.
 """
 
 import os
@@ -67,7 +67,7 @@ def test_headline_scan_length_matches_production_rollout():
     """The headline program's documented rationale is that its scan length
     equals the production PPO rollout length; enforce the contract so the
     two cannot drift silently (dispatch amortization is part of what the
-    headline measures - docs/DISPATCH_OVERHEAD_TPU_v5e.json)."""
+    headline measures)."""
     import inspect
 
     from spintorque_tpu.rl import PPOConfig

@@ -1,4 +1,4 @@
-"""Pallas kernel vs XLA integrator agreement (interpret mode on CPU)."""
+"""GPU pulse kernel vs XLA integrator agreement (Pallas interpreter on CPU)."""
 
 import math
 
@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from spintorque_tpu.physics import IntegratorConfig, LLGSParams, integrate_pulse
+from spintorque_tpu.ops import pallas_integrator as pi
 from spintorque_tpu.ops.pallas_integrator import (
     integrate_pulse_pallas,
+    interpret_mode,
     pallas_supported,
 )
 
@@ -70,20 +70,20 @@ def test_pallas_matches_xla_deterministic(method):
     m0, spans, cur = _setup()
     cfg = IntegratorConfig(method=method, max_substeps=512)
     ref = integrate_pulse(m0, spans, cur, PARAMS.astype(jnp.float32), cfg)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         out = integrate_pulse_pallas(m0, spans, cur, PARAMS.astype(jnp.float32), cfg)
     _assert_close(out, ref)
 
 
 @pytest.mark.parametrize("B", [1, 5, 200])
 def test_pallas_odd_batch_sizes(B):
-    """Batches that are not lane/tile multiples exercise the padding AND the
-    scatter-based inverse permutation at degenerate shapes (B=1: the
-    permutation is a single element; B=200: 1 lane-row padded to a tile)."""
+    """Batches that are not block multiples exercise the padding: padded
+    lanes must neither run nor leak into the results (B=1: one real lane
+    in a block; B=200: a partly filled last block)."""
     m0, spans, cur = _setup(B=B, seed=11)
     cfg = IntegratorConfig(method="rk4", max_substeps=256)
     ref = integrate_pulse(m0, spans, cur, PARAMS.astype(jnp.float32), cfg)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         out = integrate_pulse_pallas(m0, spans, cur, PARAMS.astype(jnp.float32), cfg)
     _assert_close(out, ref)
 
@@ -96,17 +96,14 @@ def test_pallas_matches_xla_tilted_axis():
     ).astype(jnp.float32)
     cfg = IntegratorConfig(method="rk4", max_substeps=256)
     ref = integrate_pulse(m0, spans, cur, tilted, cfg)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         out = integrate_pulse_pallas(m0, spans, cur, tilted, cfg)
     _assert_close(out, ref)
 
 
 def test_pallas_per_env_params_with_heterogeneous_spans():
-    """Pins the sort-alignment contract: per-env (B,) physics params and
-    per-env (B, 3) easy axes must ride through the descending-n sort with
-    their env. Spans vary (non-identity permutation) and params vary
-    per-env, so any missed permute shows up as a large mismatch.
-    (Advisor round-1 high-severity findings #1/#2.)"""
+    """Per-env (B,) physics params and per-env (B, 3) easy axes must reach
+    their own lane, across blocks that run to different bounds."""
     B = 192
     m0, spans, cur = _setup(B=B, seed=11)
     key = jax.random.PRNGKey(99)
@@ -127,21 +124,20 @@ def test_pallas_per_env_params_with_heterogeneous_spans():
     )
     cfg = IntegratorConfig(method="rk4", max_substeps=512)
     ref = integrate_pulse(m0, spans, cur, params, cfg)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         out = integrate_pulse_pallas(m0, spans, cur, params, cfg)
     _assert_close(out, ref)
 
 
-# The threefry_bits fixture (raw-bits substitution harness) lives in
-# tests/unit/conftest.py so test_rk4_noise_modes.py can share it.
-
-
-def test_pallas_thermal_sigma_rides_the_sort(threefry_bits):
+def test_pallas_thermal_sigma_rides_the_sort(monkeypatch):
     """Half the envs run at T=0 (exactly deterministic), half at T=500 K.
-    Spans are laid out ASCENDING so the descending-n sort reverses the batch;
-    if the temperature/sigma arrays were not permuted with the state, the
-    wrong envs would receive noise. The T=0 half must match the
-    deterministic XLA result bitwise-ish; the T=500 half must differ."""
+    Spans are laid out ASCENDING and the duration sort is engaged (one
+    'SM'), so the descending-n sort reverses the batch; if sigma were not
+    permuted with the state, the wrong envs would receive noise. The T=0
+    half must match the deterministic XLA result; the T=500 half must
+    differ."""
+    monkeypatch.setattr(pi, "_sm_count", lambda: 1)
+    jax.clear_caches()
     B = 128
     key = jax.random.PRNGKey(5)
     m = jax.random.normal(key, (B, 3), jnp.float32)
@@ -157,7 +153,7 @@ def test_pallas_thermal_sigma_rides_the_sort(threefry_bits):
     thermal_cfg = IntegratorConfig(
         method="heun", max_substeps=512, thermal=True, noise_mode="physical"
     )
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         (px, py, pz), n, dt, failed = integrate_pulse_pallas(
             m0, spans, cur, PARAMS.astype(jnp.float32), thermal_cfg,
             key=jax.random.PRNGKey(42), temperature=temp,
@@ -183,7 +179,7 @@ def test_pallas_freeze_flag_matches():
     cfg = IntegratorConfig(method="rk4", max_substeps=128)
     ref = integrate_pulse((m[:, 0], m[:, 1], m[:, 2]), spans, cur,
                           PARAMS.astype(jnp.float32), cfg)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         (px, py, pz), n, dt, failed = integrate_pulse_pallas(
             (m[:, 0], m[:, 1], m[:, 2]), spans, cur, PARAMS.astype(jnp.float32), cfg
         )
@@ -191,83 +187,35 @@ def test_pallas_freeze_flag_matches():
     np.testing.assert_allclose(np.asarray(px), np.asarray(ref.m[0]), rtol=2e-6, atol=2e-6)
 
 
-def test_pallas_noise_statistics(threefry_bits):
-    """CI-runnable statistical validation of the kernel's Box-Muller path
-    (VERDICT round-1 weak #3): draws through the same _normal_pair_from_bits
-    the thermal kernel uses — signed-int32 bits -> mantissa-bitcast uniform
-    -> Box-Muller — in interpret mode, and checks moments + a KS test
-    against the standard normal. Fails if the mantissa masking or the
-    transform regresses (e.g. the signed-bits NaN bug the docstring warns
-    about). The raw hardware bits themselves are validated on-TPU by
-    scripts/verify_pallas_thermal.py."""
+def test_pallas_noise_statistics():
+    """Moments and a KS test of the kernel's own noise: Threefry bits ->
+    mantissa-bitcast uniforms -> Box-Muller, drawn inside a kernel. Also
+    checks the field count per substep and that the components, fields and
+    substeps are uncorrelated, for both RK4 sampling modes."""
+    for rk4_noise in ("per_substep", "per_stage"):
+        _check_kernel_noise(rk4_noise)
+
+
+def _check_kernel_noise(rk4_noise):
     from scipy import stats
 
-    from spintorque_tpu.ops import pallas_integrator as pi
-
-    rows, lanes = 64, 128
-
-    def kern(a_ref, b_ref):
-        a, b = pi._normal_pair_from_bits((rows, lanes))
-        a_ref[:] = a
-        b_ref[:] = b
-
-    with pltpu.force_tpu_interpret_mode():
-        a, b = pl.pallas_call(
-            kern,
-            out_shape=[
-                jax.ShapeDtypeStruct((rows, lanes), jnp.float32),
-                jax.ShapeDtypeStruct((rows, lanes), jnp.float32),
-            ],
-        )()
-    samples = np.concatenate([np.asarray(a).ravel(), np.asarray(b).ravel()])
-    n = samples.size  # 16384
+    cfg = IntegratorConfig(method="rk4", thermal=True, rk4_noise=rk4_noise)
+    with interpret_mode():
+        out = np.asarray(pi.sample_kernel_normals(cfg, jax.random.PRNGKey(7), 4096))
+    assert out.shape[1] == (1 if rk4_noise == "per_substep" else 4)
+    samples = out.ravel()
+    n = samples.size
     assert np.all(np.isfinite(samples)), "non-finite normals from Box-Muller"
-    # Moments: mean ~ N(0, 1/n), std err of std ~ 1/sqrt(2n), |skew| small.
     assert abs(samples.mean()) < 5.0 / math.sqrt(n)
     assert abs(samples.std() - 1.0) < 5.0 / math.sqrt(2 * n)
     assert abs(stats.skew(samples)) < 0.12
     assert abs(stats.kurtosis(samples)) < 0.25
-    # Distribution-level check: KS against N(0,1).
     ks = stats.kstest(samples, "norm")
     assert ks.pvalue > 1e-4, f"KS test rejects normality: {ks}"
-    # cos/sin halves of the same transform must be uncorrelated.
-    corr = np.corrcoef(np.asarray(a).ravel(), np.asarray(b).ravel())[0, 1]
-    assert abs(corr) < 0.05
-
-
-def test_bf16_rhs_variant_accuracy_and_gating():
-    """IntegratorConfig.bf16_rhs: bf16 stage arithmetic with f32 state
-    accumulation. Pins (a) the variant runs and stays on the unit sphere,
-    (b) it REALLY computes in bf16 (nonzero deviation from f32 - an earlier
-    harness used torque-dominated currents whose dynamics snap both
-    variants onto the exact (0,0,1) fixed point, hiding a would-be wiring
-    bug), and (c) the deviation stays within the bf16 phase-drift bound
-    for a <=300-substep precession pulse. The workload is zero-current
-    precession + damping: no attractor snap, so rounding differences
-    accumulate and are observable."""
-    m0, spans, _ = _setup(B=256, seed=3)
-    cur = jnp.zeros_like(spans)
-    cfg32 = IntegratorConfig(method="rk4", max_substeps=512)
-    cfg16 = cfg32._replace(bf16_rhs=True)
-    with pltpu.force_tpu_interpret_mode():
-        (ax, ay, az), n32, _, f32_failed = integrate_pulse_pallas(
-            m0, spans, cur, PARAMS.astype(jnp.float32), cfg32)
-        (bx, by, bz), n16, _, f16_failed = integrate_pulse_pallas(
-            m0, spans, cur, PARAMS.astype(jnp.float32), cfg16)
-    a = np.stack([np.asarray(ax), np.asarray(ay), np.asarray(az)], -1)
-    b = np.stack([np.asarray(bx), np.asarray(by), np.asarray(bz)], -1)
-    assert np.all(np.isfinite(b))
-    np.testing.assert_allclose(np.linalg.norm(b, axis=-1), 1.0, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(n32), np.asarray(n16))
-    assert not np.asarray(f16_failed).any()
-    # Engagement: bf16 rounding must actually perturb the trajectories...
-    cosang = np.clip(np.sum(a * b, axis=-1), -1.0, 1.0)
-    ang = np.degrees(np.arccos(cosang))
-    assert ang.max() > 1e-3, "bf16_rhs produced bitwise-f32 results"
-    # ...and stay within the phase-drift bound (~0.4% per-substep relative
-    # field error accumulating over <=300 substeps of ~0.1 rad precession).
-    assert ang.mean() < 6.0, ang.mean()
-    assert ang.max() < 25.0, ang.max()
+    rows = out.reshape(-1, out.shape[-1])
+    corr = np.corrcoef(rows)
+    off = corr[~np.eye(len(rows), dtype=bool)]
+    assert np.abs(off).max() < 5.0 / math.sqrt(out.shape[-1])
 
 
 def test_pallas_matches_xla_randomized_configs():
@@ -305,7 +253,7 @@ def test_pallas_matches_xla_randomized_configs():
             )
         cfg = IntegratorConfig(method=method, max_substeps=512)
         ref = integrate_pulse(m0, spans, cur, params, cfg)
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             out = integrate_pulse_pallas(m0, spans, cur, params, cfg)
         label = f"trial={trial} method={method} B={B}"
         for c in range(3):
@@ -318,23 +266,46 @@ def test_pallas_matches_xla_randomized_configs():
             np.asarray(out[3]), np.asarray(ref.failed), err_msg=label)
 
 
-def test_cos_sin_2pi_accuracy():
-    """The quadrant-folded Cephes polynomials must match libm cos/sin of
-    2*pi*u to ~1 ulp-class absolute error over the whole input domain,
-    including the quadrant boundaries (u = k/8) and the wrap at u->1."""
-    from spintorque_tpu.ops.pallas_integrator import _cos_sin_2pi
+@pytest.mark.parametrize(
+    "batch,n_sm,shape",
+    [(4096, 132, (32, 1, False)), (65536, 132, (128, 4, True)),
+     (16384, 132, (32, 1, True)), (4224, 132, (32, 1, False)),
+     (4225, 132, (32, 1, True)), (16896, 132, (128, 4, True))],
+)
+def test_launch_shape_rule(batch, n_sm, shape):
+    """Narrow blocks without the sort while the blocks fit on the SMs;
+    the duration sort once they queue; wide blocks once they fill them."""
+    assert pi.launch_shape(batch, n_sm) == shape
 
-    u = np.concatenate([
-        np.linspace(0.0, 1.0, 200_001, dtype=np.float64)[:-1],
-        np.asarray([0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
-                    1.0 - 2**-24]),
-    ])
-    c, s = _cos_sin_2pi(jnp.asarray(u, jnp.float32))
-    theta = 2.0 * np.pi * u.astype(np.float64)
-    err_c = np.abs(np.asarray(c, np.float64) - np.cos(theta))
-    err_s = np.abs(np.asarray(s, np.float64) - np.sin(theta))
-    assert err_c.max() < 4e-7, err_c.max()
-    assert err_s.max() < 4e-7, err_s.max()
-    # unit norm to float32 rounding
-    norm = np.asarray(c, np.float64) ** 2 + np.asarray(s, np.float64) ** 2
-    assert np.abs(norm - 1.0).max() < 1e-6
+
+@pytest.mark.parametrize("n_sm", [1, 3])
+@pytest.mark.parametrize("thermal", [False, True])
+def test_sorted_and_wide_launches_match_unsorted(monkeypatch, n_sm, thermal):
+    """The duration sort and the wide blocks change only the order and
+    grouping of lanes: per-env results are bitwise those of the narrow,
+    unsorted launch, for per-env params, a tilted axis and thermal noise
+    (keyed by env index, so it rides with its env through the sort)."""
+    B = 200
+    m0, spans, cur = _setup(B=B, seed=13)
+    params = PARAMS.replace(
+        easy_axis=jnp.asarray([0.6, 0.0, 0.8], jnp.float32),
+        damping=jnp.linspace(0.005, 0.05, B, dtype=jnp.float32),
+    ).astype(jnp.float32)
+    cfg = IntegratorConfig(method="rk4", max_substeps=256, thermal=thermal,
+                           rk4_noise="per_substep", noise_mode="physical")
+    key = jax.random.PRNGKey(4)
+    with interpret_mode():
+        monkeypatch.setattr(pi, "_sm_count", lambda: 10_000)
+        assert pi.launch_shape(B, pi._sm_count()) == (32, 1, False)
+        ref = integrate_pulse_pallas(m0, spans, cur, params, cfg, key=key)
+        monkeypatch.setattr(pi, "_sm_count", lambda: n_sm)
+        assert pi.launch_shape(B, n_sm)[2], "sort did not engage"
+        jax.clear_caches()
+        out = integrate_pulse_pallas(m0, spans, cur, params, cfg, key=key)
+    for c in range(3):
+        np.testing.assert_array_equal(np.asarray(out[0][c]), np.asarray(ref[0][c]))
+    np.testing.assert_array_equal(np.asarray(out[3]), np.asarray(ref[3]))
+    np.testing.assert_array_equal(np.asarray(out[1]), np.asarray(ref[1]))
+    if not thermal:
+        xla = integrate_pulse(m0, spans, cur, params, cfg)
+        _assert_close(out, xla)

@@ -1,21 +1,13 @@
-"""Shard-safety of the Pallas fast path (round-3 verdict item #1).
+"""Shard-safety of the GPU pulse kernel.
 
-With the env batch sharded over a mesh's 'data' axis, a GLOBAL
-jnp.argsort(-n) in the fast path would force cross-chip all-gathers in the
-hottest loop. integrate_pulse_pallas(mesh=...) instead runs the whole
-sort -> tile -> kernel -> inverse-scatter pipeline PER SHARD under
-jax.shard_map. These tests pin:
+integrate_pulse_pallas(mesh=...) runs the kernel PER SHARD of the 'data'
+axis under jax.shard_map, so no batch data crosses devices. These tests pin
+bitwise equality with the unsharded path: deterministic (each env's
+integration is independent) for the +z-specialized RHS, the general
+tilted-axis RHS and per-env params, and thermal (the noise is keyed by the
+GLOBAL env index, so every env draws the same noise sharded or not).
 
-  * bitwise equality with the unsharded path (the sort only groups envs
-    into duration buckets; each env's integration is independent), for the
-    +z-specialized RHS, the general tilted-axis RHS, and per-env params
-  * the per-shard PRNG seed decorrelation (each data shard folds its
-    axis index into the kernel seed - without it all shards would draw
-    identical thermal fields, since tile ids repeat per shard)
-  * the thermal path end-to-end under shard_map (threefry-substituted bits;
-    the hardware PRNG itself is validated by scripts/verify_pallas_thermal)
-
-The zero-collectives HLO assertion with the Pallas path ENGAGED lives in
+The zero-collectives HLO assertion with the kernel ENGAGED lives in
 tests/integration/test_sharding.py::test_sharded_step_pallas_zero_collectives.
 """
 
@@ -23,11 +15,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
-
 from spintorque_tpu.ops.pallas_integrator import (
-    _shard_seed,
     integrate_pulse_pallas,
+    interpret_mode,
 )
 from spintorque_tpu.parallel import make_mesh
 from spintorque_tpu.physics import IntegratorConfig, LLGSParams
@@ -72,7 +62,7 @@ def test_sharded_matches_unsharded_deterministic():
     m0, spans, cur = _setup()
     cfg = IntegratorConfig(method="rk4", max_substeps=512)
     mesh = make_mesh()
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         ref = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg)
         out = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, mesh=mesh)
     _assert_bitwise_equal(out, ref)
@@ -86,15 +76,14 @@ def test_sharded_matches_unsharded_tilted_axis():
     )
     cfg = IntegratorConfig(method="rk4", max_substeps=512)
     mesh = make_mesh()
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         ref = integrate_pulse_pallas(m0, spans, cur, tilted, cfg)
         out = integrate_pulse_pallas(m0, spans, cur, tilted, cfg, mesh=mesh)
     _assert_bitwise_equal(out, ref)
 
 
 def test_sharded_per_env_params_ride_local_sort():
-    """(B,) per-env parameters must permute with THEIR env inside each
-    shard's local sort."""
+    """(B,) per-env parameters must reach THEIR env inside each shard."""
     B = 64
     m0, spans, cur = _setup(B=B)
     per_env = PARAMS.replace(
@@ -103,7 +92,7 @@ def test_sharded_per_env_params_ride_local_sort():
     )
     cfg = IntegratorConfig(method="rk4", max_substeps=512)
     mesh = make_mesh()
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         ref = integrate_pulse_pallas(m0, spans, cur, per_env, cfg)
         out = integrate_pulse_pallas(m0, spans, cur, per_env, cfg, mesh=mesh)
     _assert_bitwise_equal(out, ref)
@@ -115,47 +104,56 @@ def test_single_data_axis_skips_shard_map():
     m0, spans, cur = _setup(B=64)
     cfg = IntegratorConfig(method="euler", max_substeps=128)
     mesh = make_mesh(n_data=1, n_model=8)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         ref = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg)
         out = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, mesh=mesh)
     _assert_bitwise_equal(out, ref)
 
 
-def test_shard_seed_decorrelates_shards():
-    """Each data shard must fold a distinct offset into the kernel seed:
-    the kernel seeds tiles with seed + program_id and tile ids repeat on
-    every shard, so equal seeds would replicate the thermal field across
-    chips. Also: the offset stride must dwarf any realistic per-shard tile
-    count so shard streams cannot collide via program_id overlap."""
-    base = jnp.int32(12345)
-    seeds = np.asarray(
-        [int(_shard_seed(base, jnp.int32(i))) for i in range(64)]
-    )
-    assert len(set(seeds.tolist())) == 64
-    # Max tiles per shard: 65536 envs / 128 lanes / 8 tile-rows = 64 —
-    # adjacent shard seeds must be farther apart than that.
-    assert np.all(np.abs(np.diff(seeds)) > 4096)
+def test_sharded_thermal_runs():
+    """Thermal kernel under shard_map draws exactly the unsharded noise:
+    bitwise-equal results, finite unit-norm output, no failures."""
+    _check_sharded_thermal("per_substep")
 
 
-def test_sharded_thermal_runs(threefry_bits):
-    """Thermal body under shard_map: finite unit-norm output, no failures.
+def test_sharded_thermal_per_stage_matches_unsharded():
+    _check_sharded_thermal("per_stage")
 
-    (Stream decorrelation across shards is seed-level logic covered above;
-    the substituted trace-time bits cannot observe the per-shard seed.)"""
+
+def _check_sharded_thermal(rk4_noise):
     m0, spans, cur = _setup(B=128)
     cfg = IntegratorConfig(
         method="rk4", max_substeps=512, thermal=True,
-        noise_mode="reference", rk4_noise="per_substep",
+        noise_mode="reference", rk4_noise=rk4_noise,
     )
     mesh = make_mesh()
-    with pltpu.force_tpu_interpret_mode():
-        (mx, my, mz), n, dt, failed = integrate_pulse_pallas(
-            m0, spans, cur, PARAMS, cfg, key=jax.random.PRNGKey(3), mesh=mesh,
-        )
+    key = jax.random.PRNGKey(3)
+    with interpret_mode():
+        ref = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, key=key)
+        out = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, key=key, mesh=mesh)
+    _assert_bitwise_equal(out, ref)
+    (mx, my, mz), n, dt, failed = out
     m = np.stack([np.asarray(mx), np.asarray(my), np.asarray(mz)], -1)
     assert np.all(np.isfinite(m))
     np.testing.assert_allclose(np.linalg.norm(m, axis=-1), 1.0, atol=1e-5)
     assert not np.asarray(failed).any()
+
+
+def test_thermal_noise_is_keyed_by_global_env_index():
+    """Every env draws its own noise: with equal states and spans in every
+    lane, two envs that shared a key would end in the same state."""
+    B = 64
+    m = jnp.tile(jnp.asarray([[0.6, 0.0, 0.8]], jnp.float32), (B, 1))
+    m0 = (m[:, 0], m[:, 1], m[:, 2])
+    spans = jnp.full((B,), 1e-10, jnp.float32)
+    cur = jnp.zeros((B,), jnp.float32)
+    cfg = IntegratorConfig(method="heun", max_substeps=128, thermal=True,
+                           noise_mode="physical")
+    key = jax.random.PRNGKey(11)
+    with interpret_mode():
+        (fx, _, _), *_ = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, key=key)
+    fx = np.asarray(fx)
+    assert len(np.unique(fx)) == B, "two envs drew the same noise"
 
 
 def test_indivisible_batch_falls_back_to_unsharded():
@@ -165,7 +163,7 @@ def test_indivisible_batch_falls_back_to_unsharded():
     m0, spans, cur = _setup(B=100)
     cfg = IntegratorConfig(method="rk4", max_substeps=512)
     mesh = make_mesh()
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         ref = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg)
         out = integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg, mesh=mesh)
     _assert_bitwise_equal(out, ref)

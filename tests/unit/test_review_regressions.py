@@ -23,16 +23,19 @@ PARAMS = LLGSParams(
 
 
 def test_pallas_prng_produces_proper_normals():
-    """Finding: prng_random_bits is signed int32; without the uint32 bitcast
-    half the Box-Muller draws were NaN. Check the noise is two-sided with a
-    sane spread (interpret mode)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from spintorque_tpu.ops.pallas_integrator import integrate_pulse_pallas
+    """Finding: a signed-bits uniform made half the Box-Muller draws NaN,
+    and the per-substep normalize fallback then silently reset the state.
+    The kernel's thermal field must be finite, two-sided and spread out
+    (interpret mode)."""
+    from spintorque_tpu.ops.pallas_integrator import (
+        integrate_pulse_pallas,
+        interpret_mode,
+    )
 
     B = 512
     m = jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (B, 1))
     cfg = IntegratorConfig(method="euler", thermal=True, max_substeps=64)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         (px, py, pz), n, dt, failed = integrate_pulse_pallas(
             (m[:, 0], m[:, 1], m[:, 2]),
             jnp.full((B,), 5e-11, jnp.float32),
@@ -43,13 +46,14 @@ def test_pallas_prng_produces_proper_normals():
             temperature=300.0,
         )
     px, py = np.asarray(px), np.asarray(py)
-    # Interpret mode stubs prng_random_bits to zeros, so distribution checks
-    # only run on real TPU (scripts/verify_pallas_thermal.py); here we pin
-    # the NaN regression: with the signed-bits bug, log(u1) was NaN and the
-    # state was silently reset - everything must stay finite and off-pole
-    # states must not collapse back to exactly (0,0,1).
     assert np.isfinite(px).all() and np.isfinite(py).all()
     assert np.isfinite(np.asarray(pz)).all()
+    assert not np.asarray(failed).any()
+    # Two-sided transverse kicks: both signs occur, and no env is reset to
+    # exactly the pole.
+    assert (px > 0).any() and (px < 0).any()
+    assert (py > 0).any() and (py < 0).any()
+    assert np.all(np.abs(px) > 0)
 
 
 def test_single_env_pair_action():

@@ -1,16 +1,15 @@
 """RK4 thermal-noise sampling modes: 'per_stage' (reference parity) vs
 'per_substep' (standard SDE treatment, 4x cheaper sampling — see
-IntegratorConfig.rk4_noise and docs/PERFORMANCE.md)."""
+IntegratorConfig.rk4_noise)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 import spintorque_tpu.physics.integrator as integ
 from spintorque_tpu.physics import IntegratorConfig, LLGSParams, integrate_pulse
-from spintorque_tpu.ops.pallas_integrator import integrate_pulse_pallas
+from spintorque_tpu.ops.pallas_integrator import integrate_pulse_pallas, interpret_mode
 
 PARAMS = LLGSParams(
     saturation_magnetization=800e3,
@@ -113,12 +112,12 @@ def test_unknown_rk4_noise_raises():
     with pytest.raises(ValueError, match="rk4_noise"):
         integrate_pulse(m0, spans, cur, PARAMS, cfg, key=jax.random.PRNGKey(0))
     with pytest.raises(ValueError, match="rk4_noise"):
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             integrate_pulse_pallas(m0, spans, cur, PARAMS, cfg,
                                    key=jax.random.PRNGKey(0))
 
 
-def test_pallas_per_substep_cold_envs_match(threefry_bits):
+def test_pallas_per_substep_cold_envs_match():
     """Kernel path in per_substep mode: T=0 envs must equal the
     deterministic XLA result; T=500 envs must deviate.
 
@@ -140,7 +139,7 @@ def test_pallas_per_substep_cold_envs_match(threefry_bits):
                           IntegratorConfig(method="rk4", max_substeps=512))
     cfg = IntegratorConfig(method="rk4", max_substeps=512, thermal=True,
                            noise_mode="physical", rk4_noise="per_substep")
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         (px, py, pz), n, dt, failed = integrate_pulse_pallas(
             m0, spans, cur, soft, cfg, key=jax.random.PRNGKey(42),
             temperature=temp,

@@ -136,11 +136,11 @@ def test_ppo_bfloat16_compute_dtype():
     assert all(
         l.dtype == jnp.float32 for l in jax.tree.leaves(ts.params)
     ), "params must stay float32 under bfloat16 compute"
-    mean, log_std, value = tr16.network.apply({"params": ts.params}, ts.obs)
+    mean, log_std, value = tr16.network.apply(ts.params, ts.obs)
     assert mean.dtype == jnp.float32 and value.dtype == jnp.float32
 
     tr32 = PPOTrainer(env, PPOConfig(compute_dtype="float32", **cfg))
-    mean32, _, value32 = tr32.network.apply({"params": ts.params}, ts.obs)
+    mean32, _, value32 = tr32.network.apply(ts.params, ts.obs)
     np.testing.assert_allclose(np.asarray(mean), np.asarray(mean32),
                                atol=0.05)
     np.testing.assert_allclose(np.asarray(value), np.asarray(value32),
